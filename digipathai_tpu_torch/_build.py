@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) on first use.
+
+Each source compiles with plain ``nvcc`` into a shared library with a C
+interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library file is named after a hash of the source and the flags, so a
+changed source is rebuilt and a stale library is never loaded.  The build
+directory is git-ignored.  A build failure raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: ctypes signature of each library's entry points: name -> (argtypes, restype)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+SIGNATURES = {
+    "conv_fused": {
+        "dpai_fused_conv3x3": (
+            # x, w, mul, off, pre_mul, pre_add, out, n, h, w, c, f, relu,
+            # is_bf16, stream
+            [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+             _I, _I, _P], _I),
+    },
+}
+
+#: ptxas resource report (registers, shared memory, spills) of each build
+build_logs: dict = {}
+
+
+def nvcc_path() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels of digipathai_tpu_torch cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + repr(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {name}.cu (exit {r.returncode}):\n"
+                f"{r.stdout}\n{r.stderr}")
+        build_logs[name] = r.stdout + r.stderr
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed, load, and declare the entry points' signatures."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib

@@ -1,0 +1,222 @@
+"""DenseNet-121 U-Net in PyTorch, NHWC, bf16 compute with f32 parameters.
+
+Port of the canonical forward of ``digipathai_tpu/models/densenet_unet.py``:
+a DenseNet-121 encoder (blocks [6, 12, 24, 16], growth 32, 0.5
+transitions, BN eps 1.001e-5) and a 5-stage nearest-upsample U-Net decoder
+(320/256/128/96/64 conv + BN(1e-3) + relu blocks) with a 2-class softmax.
+
+Every 3x3 convolution runs through ``ops.conv_fused.fused_conv3x3``:
+- the dense layer's BN -> relu -> 3x3 conv folds the BN into the kernel's
+  pre-activation (as ``dense_block_chunked`` does with ``pallas_blocks``);
+- each decoder conv block is conv + bias with the BN folded into the
+  kernel's epilogue affine (as ``fused_decoder`` does).
+
+Submodules carry the Keras/flax names (``conv2_block1_1_conv``, ``conv2d_3``,
+``batch_normalization_7``, ...) and parameters keep flax's layouts (HWIO
+kernels), so ``bridge.flax_to_torch`` is a name-to-name copy.  Activations
+stay NHWC-contiguous; the stem conv and the pools run on NCHW views of them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import conv_fused
+
+BN_EPS_DENSE = 1.001e-5
+BN_EPS_DECODER = 1e-3
+
+
+class Conv(nn.Module):
+    """Conv parameters as flax stores them: ``kernel`` (kh, kw, cin, cout)
+    and an optional ``bias`` (cout,)."""
+
+    def __init__(self, kh: int, kw: int, cin: int, cout: int,
+                 use_bias: bool = True, init_scale: float = 1.0):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(kh, kw, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.init_scale = init_scale  # variance scale: 1 lecun, 2 he
+
+    def reset_parameters(self, generator: torch.Generator):
+        """flax's variance_scaling(scale, "fan_in", "truncated_normal")."""
+        kh, kw, cin, _ = self.kernel.shape
+        std = (self.init_scale / (kh * kw * cin)) ** 0.5 / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm: ``scale``/``bias`` parameters and ``mean``/``var``
+    buffers, under flax's names."""
+
+    def __init__(self, features: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def folded(self):
+        """(mul, add), f32: BN(x) == x * mul + add."""
+        mul = self.scale * torch.rsqrt(self.var + self.eps)
+        return mul, self.bias - self.mean * mul
+
+    def forward(self, x, relu: bool = False):
+        """flax's BatchNorm on an x.dtype input: f32 arithmetic, one
+        rounding to x.dtype."""
+        mul = self.scale * torch.rsqrt(self.var + self.eps)
+        y = (x.float() - self.mean) * mul + self.bias
+        if relu:
+            y = torch.relu(y)
+        return y.to(x.dtype)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling of an NHWC tensor."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(
+        n, 2 * h, 2 * w, c)
+
+
+def conv1x1(x: torch.Tensor, conv: Conv) -> torch.Tensor:
+    """A 1x1 conv on NHWC is a matmul over channels."""
+    y = torch.matmul(x, conv.kernel[0, 0].to(x.dtype))
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random init of every Conv/BatchNorm of ``module``, in
+    registration order, from one ``torch.Generator``."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, (Conv, BatchNorm)):
+            m.reset_parameters(g)
+    return module
+
+
+class DenseNet121UNet(nn.Module):
+    """(N, H, W, 3) normalized patches -> (N, H, W, num_classes) f32 softmax."""
+
+    def __init__(self, blocks=(6, 12, 24, 16), growth: int = 32,
+                 num_classes: int = 2, dtype=torch.bfloat16):
+        super().__init__()
+        self.blocks = tuple(blocks)
+        self.growth = growth
+        self.dtype = dtype
+        add = self.add_module
+        add("conv1__conv", Conv(7, 7, 3, 64, use_bias=False))
+        add("conv1__bn", BatchNorm(64, BN_EPS_DENSE))
+        c = 64
+        skips = [64]  # channels of conv1, conv2, conv3, conv4
+        for bi, n in enumerate(self.blocks):
+            name = f"conv{bi + 2}"
+            for i in range(n):
+                ln = f"{name}_block{i + 1}"
+                add(f"{ln}_0_bn", BatchNorm(c, BN_EPS_DENSE))
+                add(f"{ln}_1_conv", Conv(1, 1, c, 4 * growth, use_bias=False))
+                add(f"{ln}_1_bn", BatchNorm(4 * growth, BN_EPS_DENSE))
+                add(f"{ln}_2_conv", Conv(3, 3, 4 * growth, growth,
+                                         use_bias=False))
+                c += growth
+            if bi < len(self.blocks) - 1:
+                skips.append(c)
+                add(f"pool{bi + 2}_bn", BatchNorm(c, BN_EPS_DENSE))
+                add(f"pool{bi + 2}_conv", Conv(1, 1, c, c // 2, use_bias=False))
+                c //= 2
+        add("bn", BatchNorm(c, BN_EPS_DENSE))
+        # decoder: (features, skip channels) per stage, deepest first
+        self.stages = [(320, skips[3]), (256, skips[2]), (128, skips[1]),
+                       (96, skips[0]), (64, 0)]
+        ci = 0
+        for feats, cs in self.stages:
+            for cin in (c, feats + cs):
+                add("conv2d" if ci == 0 else f"conv2d_{ci}",
+                    Conv(3, 3, cin, feats, init_scale=2.0))
+                add("batch_normalization" if ci == 0
+                    else f"batch_normalization_{ci}",
+                    BatchNorm(feats, BN_EPS_DECODER))
+                ci += 1
+            c = feats
+        add(f"conv2d_{ci}", Conv(1, 1, c, num_classes))
+
+    def _dense_block(self, x, n, name):
+        """Dense block with its concat preallocated: layer i reads the first
+        C0 + 32 i channels and writes its 32 new ones after them."""
+        dt = self.dtype
+        nb, h, w, c = x.shape
+        buf = x.new_empty(nb, h, w, c + n * self.growth)
+        buf[..., :c] = x
+        for i in range(n):
+            ln = f"{name}_block{i + 1}"
+            # BN0 -> relu in dt arithmetic (the JAX chunked encoder's form),
+            # then the 1x1 conv with f32 accumulation and one rounding
+            mul0, add0 = getattr(self, f"{ln}_0_bn").folded()
+            hpre = torch.relu(buf[..., :c] * mul0.to(dt) + add0.to(dt))
+            y = conv1x1(hpre, getattr(self, f"{ln}_1_conv"))
+            mul1, add1 = getattr(self, f"{ln}_1_bn").folded()
+            buf[..., c:c + self.growth] = conv_fused.fused_conv3x3(
+                y, getattr(self, f"{ln}_2_conv").kernel, relu=False,
+                pre_mul=mul1, pre_add=add1)
+            c += self.growth
+        return buf
+
+    def _transition(self, x, name):
+        y = getattr(self, f"{name}_bn")(x, relu=True)
+        y = conv1x1(y, getattr(self, f"{name}_conv"))
+        return _nhwc(F.avg_pool2d(_nchw(y), 2))
+
+    def _conv_block(self, x, i):
+        conv = getattr(self, "conv2d" if i == 0 else f"conv2d_{i}")
+        bn = getattr(self, "batch_normalization" if i == 0
+                     else f"batch_normalization_{i}")
+        mul, add = bn.folded()
+        return conv_fused.fused_conv3x3(x, conv.kernel, conv.bias, mul, add)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        k = self.conv1__conv.kernel.to(dt).permute(3, 2, 0, 1)
+        y = _nhwc(F.conv2d(_nchw(x), k, stride=2, padding=3))
+        y = self.conv1__bn(y, relu=True)
+        conv1 = y
+        # zero pad == -inf pad here: the input is post-relu
+        y = _nhwc(F.max_pool2d(_nchw(y), 3, stride=2, padding=1))
+        skips = [conv1]
+        for bi, n in enumerate(self.blocks):
+            y = self._dense_block(y, n, f"conv{bi + 2}")
+            if bi < len(self.blocks) - 1:
+                skips.append(y)
+                y = self._transition(y, f"pool{bi + 2}")
+        y = self.bn(y)  # no relu after 'bn', faithful to the reference
+
+        ci = 0
+        for (feats, cs), skip in zip(self.stages, skips[::-1] + [None]):
+            y = self._conv_block(upsample2x(y), ci)
+            if skip is not None:
+                y = torch.cat([y, skip.to(dt)], dim=-1)
+            y = self._conv_block(y, ci + 1)
+            ci += 2
+        logits = conv1x1(y, getattr(self, f"conv2d_{ci}"))
+        return torch.softmax(logits.float(), dim=-1)
