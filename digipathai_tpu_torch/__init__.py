@@ -1,10 +1,11 @@
 """DigiPathAI on PyTorch and CUDA: the port of ``digipathai_tpu`` to one NVIDIA H100.
 
 The JAX package stays the reference; this package computes the same
-segmentation with PyTorch, and its 3x3 convolutions run on a hand-written
-CUDA kernel (``csrc/conv_fused.cu``).  Host code that loads no JAX (slide
-readers, the patch loader, the TIFF writer, the server) is shared with
-``digipathai_tpu`` and imported from there.
+segmentation with PyTorch, and its kernels are hand-written CUDA: the 3x3
+convolutions (``csrc/conv_fused.cu``) and the CRF's bilateral message
+(``csrc/bilateral.cu``).  The package imports nothing of ``digipathai_tpu``:
+host code (slide readers, the patch loader, the TIFF writer, the server)
+is a copy of the JAX package's, under the same module names.
 """
 
 __version__ = "0.1.0"
@@ -12,7 +13,7 @@ __version__ = "0.1.0"
 # Lazy re-exports: `import digipathai_tpu_torch` stays cheap (no torch import).
 _LAZY = {
     "getSegmentation": "digipathai_tpu_torch.engine.segmentation",
-    "Slide": "digipathai_tpu.io.slide",
+    "Slide": "digipathai_tpu_torch.io.slide",
 }
 
 

@@ -38,6 +38,12 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
              _I, _I, _P], _I),
     },
+    "bilateral": {
+        "dpai_bilateral_message": (
+            # q, img, out, h, w, L, l0, nl, r, inv2_xy, inv2_c, stream
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+             ctypes.c_float, _P], _I),
+    },
 }
 
 #: ptxas resource report (registers, shared memory, spills) of each build
@@ -84,6 +90,15 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all() -> dict:
+    """Compile every source in ``SIGNATURES``, one ``nvcc`` each, all started
+    together; returns ``{name: library path}`` and raises on any failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SIGNATURES)) as ex:
+        return dict(zip(SIGNATURES, ex.map(build, SIGNATURES)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,25 +1,56 @@
 """Patch-grid planning: tissue mask -> static-shape supertile work units.
 
-Port of ``digipathai_tpu/engine/planner.py::plan_patches``.  The plan's
-dataclasses are the JAX package's (they hold numpy only); the tissue mask is
-the torch ``plan_mask`` on the CPU, and the rest is the same numpy logic:
-patch centers on the strided mask, clamped level-0 reads, grouped by the
-supertile of their top-left corner and padded to whole batches.
+Port of ``digipathai_tpu/engine/planner.py``: the same plan dataclasses
+and numpy logic (patch centers on the strided mask, clamped level-0 reads,
+grouped by the supertile of their top-left corner and padded to whole
+batches); the tissue mask is the torch ``plan_mask`` on the CPU.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from digipathai_tpu.engine.planner import PatchPlan, SupertileGroup
-
 from ..ops.morphology import plan_mask
 
 __all__ = ["PatchPlan", "SupertileGroup", "plan_patches"]
+
+
+@dataclass
+class SupertileGroup:
+    origin: Tuple[int, int]       # level-0 (x, y) of the supertile corner
+    coords: np.ndarray            # (n, 2) int32 level-0 patch top-lefts (padded)
+    valid: np.ndarray             # (n,) bool — False for padding
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.valid.sum())
+
+
+@dataclass
+class PatchPlan:
+    slide_dims: Tuple[int, int]   # (X, Y) level-0, width-first
+    patch: int
+    stride: int
+    supertile: int
+    batch: int
+    mask_level: int
+    resolution: int               # level-0 pixels per mask pixel
+    groups: List[SupertileGroup]
+    tissue_mask: np.ndarray       # (X_mask, Y_mask) bool, post-morphology
+    strided_mask: np.ndarray      # (X_mask, Y_mask) bool
+
+    @property
+    def total_patches(self) -> int:
+        return sum(g.n_valid for g in self.groups)
+
+    @property
+    def total_batches(self) -> int:
+        return sum(len(g.coords) // self.batch for g in self.groups)
 
 
 def plan_patches(slide, patch: int = 256, stride: int = 128, batch: int = 32,

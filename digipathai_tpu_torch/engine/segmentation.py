@@ -9,10 +9,14 @@ accumulator) -> background flush of each supertile's tissue bounding box
 into host memmaps with host-computed counts -> chunked finalize ->
 threshold and pyramid writes.
 
-Options this slice does not run yet raise ``NotImplementedError`` naming
-their ROADMAP.md item.  The TPU-only layout rewrites (``s2d_input``,
-``s2d_decoder``, ``wpack``, ``decoder_halo_crop``, ``spatial_shard``) are
-exact, so they are accepted and the canonical form runs.
+``crf=True`` refines the finalized mean map per supertile with the
+mean-field CRF (``ops/crf.py``, whose bilateral message runs on the CUDA
+kernel ``csrc/bilateral.cu``), staging each refined tile so a crashed run
+replays it.  Options this slice does not run yet raise
+``NotImplementedError`` naming their ROADMAP.md item.  The TPU-only layout
+rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``,
+``spatial_shard``) are exact, so they are accepted and the canonical form
+runs.
 """
 
 from __future__ import annotations
@@ -27,16 +31,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from digipathai_tpu.engine.loader import PatchLoader
-from digipathai_tpu.io.slide import Slide
-from digipathai_tpu.io.tiff_py import PyramidalTiffWriter
-
+from ..io.slide import Slide
+from ..io.tiff_py import PyramidalTiffWriter
 from ..models import registry
 from ..models import weights as weights_mod
 from ..ops import tta as tta_ops
 from ..ops.stitch import add_counts_host, make_accumulator
 from ..utils.profiling import StageTimer, maybe_profile
 from .infer import build_step
+from .loader import PatchLoader
 from .planner import plan_patches
 
 THRESHOLD = 0.3  # reference Segmentation.py:310
@@ -62,12 +65,13 @@ def _check_supported(quick, inference_mode, crf, quantized, fold_bn,
         _not_yet("quick=False (the 3-model ensemble)",
                  "§A item 9: Inception and DeepLab, with the ensemble")
     if inference_mode != "patch":
+        if inference_mode == "tile" and crf:
+            _not_yet("crf=True with inference_mode='tile' (the per-supertile "
+                     "CRF)", "§A item 10: tile mode")
         if inference_mode == "tile":
             _not_yet("inference_mode='tile'", "§A item 10: tile mode")
         raise ValueError(f"inference_mode must be 'patch' or 'tile', "
                          f"got {inference_mode!r}")
-    if crf:
-        _not_yet("crf=True", "§A item 11: CRF")
     if quantized:
         _not_yet("quantized", "§A item 14: quantization")
     if fold_bn:
@@ -78,6 +82,27 @@ def _check_supported(quick, inference_mode, crf, quantized, fold_bn,
     if (isinstance(data_parallel, int) and not isinstance(data_parallel, bool)
             and data_parallel > 1):
         _not_yet(f"data_parallel={data_parallel}", "§A item 12: multi-device")
+
+
+def state_crf_applied(state_path, cfg_key) -> bool:
+    """CRF refinement is in-place and non-idempotent; resumed runs must not
+    re-refine already-refined maps."""
+    try:
+        state = json.loads(state_path.read_text())
+        return state.get("config") == cfg_key and state.get("crf_applied", False)
+    except (OSError, ValueError):
+        return False
+
+
+def mark_crf_applied(state_path, cfg_key):
+    try:
+        state = json.loads(state_path.read_text())
+    except (OSError, ValueError):
+        state = {"config": cfg_key}
+    state["crf_applied"] = True
+    tmp = state_path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(state))
+    os.replace(tmp, state_path)
 
 
 def _memmap_dir() -> Path:
@@ -190,9 +215,11 @@ def getSegmentation(img_path,
     cfg_key = hashlib.sha256(repr((
         "torch", str(compute_dtype), abs_path, X, Y, patch_size, stride_size,
         batch_size, supertile, tuple(model_names), tuple(tta_full),
-        faithful_tta, inference_mode, mask_predictions)).encode()).hexdigest()
+        faithful_tta, inference_mode, mask_predictions,
+        bool(crf))).encode()).hexdigest()
     state_path = mdir / f"{stem}-stitch.json"
     completed: set = set()
+    crf_tiles_done: set = set()
     mode_mm = "w+"
     finalized = False
     if resume and state_path.exists():
@@ -202,16 +229,21 @@ def getSegmentation(img_path,
             # partial, unrepeatable additions, so the state is tainted
             if state.get("config") == cfg_key and not state.get("inflight"):
                 completed = set(state.get("completed", []))
+                crf_tiles_done = set(state.get("crf_tiles", []))
                 finalized = bool(state.get("finalized", False))
                 mode_mm = "r+"
         except (ValueError, OSError):
             pass
 
+    if mode_mm == "w+":  # fresh run: staged CRF tiles from older runs are stale
+        for sp in mdir.glob(f"{stem}-crftile-*.npz"):
+            sp.unlink()
+
     mean_map = np.memmap(mdir / f"{stem}-mean.dat", np.float32, mode_mm, shape=(Y, X))
     var_map = np.memmap(mdir / f"{stem}-var.dat", np.float32, mode_mm, shape=(Y, X))
     count_map = np.memmap(mdir / f"{stem}-count.dat", np.float32, mode_mm, shape=(Y, X))
 
-    # guards the state file and `completed`, which the flusher mutates
+    # guards the state file and the progress sets, which the flusher mutates
     state_lock = threading.Lock()
 
     def save_state(mark_finalized: bool = False, inflight=None):
@@ -222,6 +254,7 @@ def getSegmentation(img_path,
             tmp = state_path.with_suffix(".tmp")
             tmp.write_text(json.dumps(
                 {"config": cfg_key, "completed": sorted(completed),
+                 "crf_tiles": sorted(crf_tiles_done),
                  "finalized": mark_finalized or finalized,
                  "inflight": [inflight] if inflight is not None else []}))
             os.replace(tmp, state_path)
@@ -309,13 +342,51 @@ def getSegmentation(img_path,
         finalized = True
         save_state(mark_finalized=True)
 
+    # --- CRF post-pass ----------------------------------------------------
+    # CRF rewrites mean_map in place per tile (non-idempotent), so each
+    # refined tile is staged to disk (atomic rename) before the assignment
+    # and unstaged after the progress marker is persisted; a crash anywhere
+    # is recovered by replaying the staged assignment
+    if crf and not state_crf_applied(state_path, cfg_key):
+        from ..ops.crf import refine_slide_crf
+
+        def crf_tile_done(ti, staged):
+            with state_lock:
+                crf_tiles_done.add(ti)
+            save_state()
+            staged.unlink(missing_ok=True)
+
+        def crf_write(ti, box, refined):
+            sp = mdir / f"{stem}-crftile-{ti}.npz"
+            tmp = sp.with_name("tmp-" + sp.name)
+            np.savez(tmp, box=np.asarray(box), block=refined)
+            os.replace(tmp, sp)
+            y0, y1, x0, x1 = box
+            mean_map[y0:y1, x0:x1] = refined
+            crf_tile_done(ti, sp)
+
+        _status_set(status, status="Refining with CRF")
+        with timer.stage("crf"):
+            # replay tiles staged by a crashed previous run (assignment is
+            # replayable; += is not, hence staging only exists for CRF)
+            for sp in mdir.glob(f"{stem}-crftile-*.npz"):
+                ti = int(sp.stem.rsplit("-", 1)[1])
+                with np.load(sp) as z:
+                    y0, y1, x0, x1 = (int(v) for v in z["box"])
+                    mean_map[y0:y1, x0:x1] = z["block"]
+                crf_tile_done(ti, sp)
+            refine_slide_crf(slide, mean_map, supertile=supertile,
+                             done=crf_tiles_done, on_tile=crf_write,
+                             device=device, **(crf_opts or {}))
+        mark_crf_applied(state_path, cfg_key)
+
     # --- write artifacts -------------------------------------------------
     def write_u8_pyramid(path, mm):
         """Native C++ streaming writer when built; python writer otherwise."""
-        from digipathai_tpu.io import backend as io_backend
+        from ..io import backend as io_backend
 
         if io_backend.use_native():
-            from digipathai_tpu.io import native as io_native
+            from ..io import native as io_native
 
             io_native.write_pyramidal_tiff(str(path), mm, compression="jpeg",
                                            quality=90)

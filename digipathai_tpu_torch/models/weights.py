@@ -9,11 +9,25 @@ engine's warning and ``status["weights"] = "random"``.  Nothing downloads.
 
 from __future__ import annotations
 
+import os
 import warnings
-
-from digipathai_tpu.models.weights import MODES, cache_dir, h5_path
+from pathlib import Path
 
 __all__ = ["MODES", "cache_dir", "h5_path", "load_variables"]
+
+MODES = {"colon": "digestpath", "liver": "paip", "breast": "camelyon"}
+
+_H5_NAME = {"dense": "densenet", "inception": "inception", "deeplabv3": "deeplabv3"}
+
+
+def cache_dir() -> Path:
+    root = os.environ.get("DPAI_CACHE", os.path.join(os.path.expanduser("~"), ".DigiPathAI"))
+    return Path(root)
+
+
+def h5_path(mode: str, model: str) -> Path:
+    fam = MODES[mode]
+    return cache_dir() / f"{fam}_models" / f"{fam}_{_H5_NAME[model]}.h5"
 
 
 def load_variables(bundle, mode: str, model: str, patch_size: int = 256,

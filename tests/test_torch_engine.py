@@ -118,7 +118,7 @@ def test_resume_reproduces_finished_run(synthetic_slide, tmp_path,
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"crf": True}, "CRF"),
+    ({"crf": True, "inference_mode": "tile"}, "CRF"),
     ({"inference_mode": "tile"}, "tile mode"),
     ({"quick": False}, "ensemble"),
     ({"model": "inception"}, "Inception"),
@@ -147,9 +147,12 @@ def test_cuda_without_gpu_raises(synthetic_slide, tmp_path, monkeypatch):
         getSegmentation(synthetic_slide[0], model="oracle")
 
 
+_NOT_LOADED = ("jax", "flax", "digipathai_tpu")
+
+
 def test_no_jax_loaded(synthetic_slide, tmp_path):
     """The port runs the oracle engine in a fresh interpreter without ever
-    loading jax or flax."""
+    loading jax, flax or the JAX package."""
     code = f"""
 import sys
 import numpy as np
@@ -160,7 +163,7 @@ out = digipathai_tpu_torch.getSegmentation(
     probs_path={str(tmp_path / "p.tiff")!r}, mask_path={str(tmp_path / "m.tiff")!r},
     uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
 assert out.shape == (2048, 1536), out.shape
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {_NOT_LOADED!r})
 assert not loaded, loaded
 print("ok")
 """
@@ -170,6 +173,48 @@ print("ok")
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def test_every_module_stands_alone(synthetic_slide, tmp_path):
+    """Importing every module of the port and running the oracle engine
+    with crf=True loads no jax, flax or digipathai_tpu module."""
+    code = f"""
+import importlib, pkgutil, sys
+import digipathai_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) > 30, names
+status = {{}}
+out = pkg.getSegmentation(
+    {synthetic_slide[0]!r}, patch_size=128, stride_size=128, batch_size=8,
+    model="oracle", mode="colon", supertile=512, num_workers=2, crf=True,
+    crf_opts={{"n_iters": 2, "bil_radius": 4}}, status=status,
+    probs_path={str(tmp_path / "p.tiff")!r}, mask_path={str(tmp_path / "m.tiff")!r},
+    uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
+assert out.shape == (2048, 1536), out.shape
+assert "crf" in status["timings"], status
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {_NOT_LOADED!r})
+assert not loaded, loaded
+print("ok")
+"""
+    env = {**os.environ, "DPAI_CACHE": str(tmp_path / "cache"),
+           "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_server_cli_device_option():
+    """The port's CLI passes --device (default cuda) to the engine."""
+    from digipathai_tpu_torch.server.cli import build_config
+
+    cfg, _ = build_config(["-s", "."])
+    assert cfg.engine_kwargs()["device"] == "cuda"
+    cfg, _ = build_config(["--device", "cpu", "--crf"])
+    assert cfg.engine_kwargs()["device"] == "cpu"
+    assert cfg.engine_kwargs()["crf"] is True
 
 
 def test_server_runs_the_port(tmp_path, monkeypatch):
