@@ -10,18 +10,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              started together;
 3. kernels - each kernel against its plain PyTorch version at the main
              paths' shapes, with timings: fused_conv3x3 at N=32 in f32 (TF32
-             off) and bf16; bilateral_message at the CRF's 1024^2 and
-             1024x512 grids, ragged, small, sentinel-padded and L=3 cases;
+             off) and bf16; fused_up_stage at the five decoder stages of a
+             4352^2 tile forward in bf16, and two ragged stages in bf16 and
+             f32; bilateral_message at the CRF's 1024^2 and 1024x512 grids,
+             ragged, small, sentinel-padded and L=3 cases;
 4. model   - a full DenseNet121-U-Net forward, batch 32 at 256^2 in bf16,
-             through the kernel and through the plain version;
-5. engine  - getSegmentation (patch mode, dense, quick) on a synthetic
-             slide, without and with crf=True: three readable TIFFs, a mask
-             of shape (X, Y), 68 conv launches per batch and, with the CRF,
+             through the kernel and through the plain version; then one
+             tile-mode forward at (1, 4352, 4352, 3) with fused_stages=5
+             (58 conv and 5 stage launches), through fused_up_stage and
+             through its plain version;
+5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
+             mode and in tile mode with fused_stages=5, each without and
+             with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
+             conv launches per batch in patch mode, 58 conv and 5 stage
+             launches per supertile forward in tile mode and, with the CRF,
              n_iters bilateral launches per tissue supertile; then the
-             oracle model against the slide's known lesion, without and with
-             the CRF; then the oracle CRF run on the card against the CPU;
+             oracle model against the slide's known lesion (patch mode
+             without and with the CRF, and tile mode); then the oracle CRF
+             run on the card against the CPU;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
-             crf=1, poll to Done, then the mask's .dzi and one mask tile.
+             crf=1, then with inference_mode=tile&crf=1 on an engine with
+             fused_stages=5, each polled to Done, then the mask's .dzi and
+             one mask tile.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Prints a JSON line of per-kernel results, the card's name
@@ -57,6 +67,20 @@ CONV_SHAPES = [  # (name, N, H, W, C, F, pre-affine)
     ("decoder_widest", 32, 16, 16, 1344, 320, False),
     ("decoder_largest", 32, 256, 256, 96, 64, False),
     ("ragged", 3, 13, 29, 5, 7, True),
+]
+# fused_up_stage at the tile forward's shapes (supertile 4096 + a 128 px
+# halo: one 4352^2 forward): (name, N, Hh, Wh, C, Cs, F, relu)
+TILE_SIDE = 4096 + 2 * 128
+STAGE_SHAPES = [
+    ("stage1", 1, 136, 136, 1024, 1024, 320, True),
+    ("stage2", 1, 272, 272, 320, 512, 256, True),
+    ("stage3", 1, 544, 544, 256, 256, 128, True),
+    ("stage4", 1, 1088, 1088, 128, 64, 96, True),
+    ("stage5", 1, 2176, 2176, 96, 0, 64, True),
+]
+STAGE_RAGGED = [  # the scalar load path, the SAME borders, no relu
+    ("ragged", 1, 13, 29, 5, 3, 7, True),
+    ("ragged_noskip", 1, 8, 12, 5, 0, 7, False),
 ]
 # bilateral message, kernel vs plain (tests/test_pallas.py's bound): only
 # the summation order and exp's rounding differ
@@ -184,14 +208,16 @@ def conv_inputs(n, h, w, c, f, pre, dtype, seed):
 def phase_kernels(state):
     import torch
 
-    # the f32 conv rows compare against cuDNN and cuBLAS in full f32; the
-    # switches go back to the user's settings for the phases that follow
+    # the f32 conv and stage rows compare against cuDNN and cuBLAS in full
+    # f32; the switches go back to the user's settings for the phases that
+    # follow
     prev = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         kernels_conv(state)
+        kernels_stage(state)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
@@ -251,6 +277,89 @@ def kernels_conv(state):
                      "bound_ms": bound_ms,
                      "bound_by": max(bound_by, key=bound_by.get),
                      "library_ms": lib_ms}
+
+
+def stage_inputs(n, hh, wh, c, cs, f, dtype, seed):
+    """The arguments of fused_up_stage, drawn on the card (stage 5's y alone
+    is 454M values): activations N(0, 1), kernels scaled to keep the
+    pre-activations near unit variance, BN-like affines."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    def pos(*shape):
+        return torch.rand(*shape, generator=g, device="cuda") + 0.5
+
+    y = rnd(n, hh, wh, c).to(dtype)
+    ka = rnd(3, 3, c, f, scale=(9 * c) ** -0.5)
+    kb = rnd(3, 3, f + cs, f, scale=(9 * (f + cs)) ** -0.5)
+    skip = rnd(n, 2 * hh, 2 * wh, cs).to(dtype) if cs else None
+    return (y, ka, rnd(f, scale=0.1), pos(f), rnd(f, scale=0.1), kb,
+            rnd(f, scale=0.1), pos(f), rnd(f, scale=0.1), skip)
+
+
+def stage_work(n, hh, wh, c, cs, f, itemsize):
+    """(FLOP, bytes) one decoder stage needs: convA at the 4 taps that a
+    nearest 2x upsample leaves distinct per output pixel (its 3x3 window
+    covers 2 rows and 2 columns of y), convB at 9; y, skip, the output and
+    both kernels read or written once."""
+    m = 4 * n * hh * wh  # output pixels
+    flop = 2.0 * m * f * (4 * c + 9 * (f + cs))
+    nbytes = itemsize * (n * hh * wh * c + m * cs + m * f + 9 * c * f
+                         + 9 * (f + cs) * f)
+    return flop, float(nbytes)
+
+
+def kernels_stage(state):
+    import torch
+
+    from digipathai_tpu_torch.ops.stage_fused import (fused_up_stage,
+                                                      fused_up_stage_plain)
+
+    worst, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    bound_by = {}
+    rows = [(r, torch.bfloat16) for r in STAGE_SHAPES]
+    rows += [(r, dt) for r in STAGE_RAGGED
+             for dt in (torch.bfloat16, torch.float32)]
+    for (name, n, hh, wh, c, cs, f, relu), dtype in rows:
+        args = stage_inputs(n, hh, wh, c, cs, f, dtype, seed=c + cs + f)
+        got = fused_up_stage(*args, relu=relu)
+        ref = fused_up_stage_plain(*args, relu=relu)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
+        if not torch.isfinite(got).all() or not err <= rel * scale:
+            raise AssertionError(f"fused_up_stage {name} {dtype}: max|d| "
+                                 f"{err} > {rel * scale} or non-finite")
+        t_k = time_ms(lambda: fused_up_stage(*args, relu=relu), reps=5)
+        t_p = time_ms(lambda: fused_up_stage_plain(*args, relu=relu), reps=5)
+        flop, nbytes = stage_work(n, hh, wh, c, cs, f, dtype.itemsize)
+        b_ms, b_by = bound(flop, nbytes, "bf16" if dtype == torch.bfloat16
+                           else "f32")
+        log(f"[kernels] fused_up_stage {name} y ({n},{hh},{wh},{c}) skip "
+            f"Cs={cs} -> F={f} {str(dtype).split('.')[-1]}: max|d|={err:.3e} "
+            f"bound={rel * scale:.3e} kernel {t_k:.3f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s) plain {t_p:.3f} ms "
+            f"({flop / t_p / 1e9:.1f} TFLOP/s) bound {b_ms:.4f} ms ({b_by}, "
+            f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) | {state['smi']}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        if not name.startswith("ragged"):
+            ms += t_k
+            plain_ms += t_p
+            bound_ms += b_ms
+            bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
+        del args, got, ref
+        torch.cuda.empty_cache()
+    # no single PyTorch call computes a whole decoder stage: library_ms null
+    state["stage"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": max(bound_by, key=bound_by.get),
+                      "library_ms": None}
 
 
 def bilateral_work(h, w, n_labels, r):
@@ -353,20 +462,68 @@ def phase_model(state):
         raise AssertionError(f"model max|dp| {d.max().item()} > {MODEL_BOUND}")
     del m, u8, x, p, q, d
     torch.cuda.empty_cache()
+    tile_forward(state)
+
+
+def tile_forward(state):
+    """One tile-mode forward: a (1, 4352, 4352, 3) supertile with its halo
+    through fused_stages=5, then the same with fused_up_stage patched to
+    its plain version (the dense layers' conv kernel runs in both)."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.ops import stage_fused
+    from digipathai_tpu_torch.ops.color import normalize_patches
+
+    m = build_model("dense", dtype=torch.bfloat16, fused_stages=5).init(
+        PATCH, seed=0).cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    u8 = torch.randint(0, 256, (1, TILE_SIDE, TILE_SIDE, 3), generator=g,
+                       device="cuda", dtype=torch.uint8)
+    with torch.inference_mode():
+        x = normalize_patches(u8)
+        reset_launches()
+        p = m(x)[..., 1]
+        torch.cuda.synchronize()
+        n = read_launches()
+        with mock.patch.object(stage_fused, "fused_up_stage",
+                               stage_fused.fused_up_stage_plain):
+            q = m(x)[..., 1]
+            t_p = time_ms(lambda: m(x), reps=3, warmup=1)
+        t_k = time_ms(lambda: m(x), reps=3, warmup=1)
+        d = (p - q).abs()
+        dmax, dmean = d.max().item(), d.mean().item()
+        finite = bool(torch.isfinite(p).all())
+    want = {"fused_conv3x3": 58, "fused_up_stage": 5, "bilateral_message": 0}
+    if n != want:
+        raise AssertionError(f"tile forward launched {n}, want {want}")
+    if tuple(p.shape) != (1, TILE_SIDE, TILE_SIDE) or not finite:
+        raise AssertionError(f"bad tile forward output {tuple(p.shape)}")
+    log(f"[model] tile forward (1,{TILE_SIDE},{TILE_SIDE},3) bf16 with "
+        f"fused_stages=5: launches {n}; fused_up_stage vs plain max|dp|="
+        f"{dmax:.4e} mean|dp|={dmean:.4e} (bound {MODEL_BOUND}); forward "
+        f"{t_k:.2f} ms through the kernels, {t_p:.2f} ms with the plain "
+        f"stage | {state['smi']}")
+    if dmax > MODEL_BOUND:
+        raise AssertionError(f"tile forward max|dp| {dmax} > {MODEL_BOUND}")
+    del m, u8, x, p, q, d
+    torch.cuda.empty_cache()
 
 
 def reset_launches():
     """Set every kernel's launch count to 0 (a main path starts here)."""
-    from digipathai_tpu_torch.ops import bilateral, conv_fused
+    from digipathai_tpu_torch.ops import bilateral, conv_fused, stage_fused
 
     conv_fused.fused_conv3x3.launches = 0
+    stage_fused.fused_up_stage.launches = 0
     bilateral.bilateral_message.launches = 0
 
 
 def read_launches() -> dict:
-    from digipathai_tpu_torch.ops import bilateral, conv_fused
+    from digipathai_tpu_torch.ops import bilateral, conv_fused, stage_fused
 
     return {"fused_conv3x3": conv_fused.fused_conv3x3.launches,
+            "fused_up_stage": stage_fused.fused_up_stage.launches,
             "bilateral_message": bilateral.bilateral_message.launches}
 
 
@@ -433,7 +590,7 @@ def phase_engine(state):
         reset_launches()
         _, status, nb, wall = run("dense", f"dense-crf{int(crf)}", crf=crf)
         got = read_launches()
-        want = {"fused_conv3x3": 68 * nb,
+        want = {"fused_conv3x3": 68 * nb, "fused_up_stage": 0,
                 "bilateral_message": want_bil if crf else 0}
         if nb != plan.total_batches or got != want:
             raise AssertionError(f"crf={crf}: launches {got}, want {want} "
@@ -455,17 +612,49 @@ def phase_engine(state):
         f"e2e {walls[False]:.2f} s without crf, {walls[True]:.2f} s with "
         f"| {state['smi']}")
 
+    # tile mode: one (1, 4352, 4352, 3) forward per tissue supertile, its
+    # five decoder stages on fused_up_stage, and with crf=True each
+    # supertile refined at its flush
+    n_tiles = len(plan.groups)
+    for crf in (False, True):
+        reset_launches()
+        _, status, ng, wall = run("dense", f"dense-tile-crf{int(crf)}",
+                                  crf=crf, inference_mode="tile",
+                                  fused_stages=5)
+        got = read_launches()
+        want = {"fused_conv3x3": 58 * n_tiles, "fused_up_stage": 5 * n_tiles,
+                "bilateral_message": n_iters * n_tiles if crf else 0}
+        if ng != n_tiles or got != want:
+            raise AssertionError(f"tile crf={crf}: launches {got}, want "
+                                 f"{want} ({ng} supertiles done of "
+                                 f"{n_tiles})")
+        if not crf:
+            state["launches"]["fused_up_stage"] = got["fused_up_stage"]
+        log(f"[engine] dense tile mode fused_stages=5 crf={crf}: {n_tiles} "
+            f"supertile forwards at {TILE_SIDE}^2, launches {got}; wall "
+            f"{wall:.2f} s = {plan.total_patches / wall:.1f} equivalent "
+            f"patches/s ({plan.total_patches} planned stride-128 patches); "
+            f"stages {status['timings']} | {state['smi']}")
+
     # the oracle model's segmentation is known: the slide's lesion
     lesion = meta["lesion_mask"]
-    for crf, floor in ((False, 0.7), (True, 0.6)):
-        mask, status, _, wall = run("oracle", f"oracle-crf{int(crf)}",
-                                    crf=crf)
+    masks = {}
+    for mode, crf, floor in (("patch", False, 0.7), ("patch", True, 0.6),
+                             ("tile", False, 0.7)):
+        mask, status, _, wall = run("oracle", f"oracle-{mode}-crf{int(crf)}",
+                                    crf=crf, inference_mode=mode)
         got = mask.T > 0
+        masks[mode, crf] = got
         iou = (got & lesion).sum() / max((got | lesion).sum(), 1)
-        log(f"[engine] oracle crf={crf}: lesion IoU {iou:.3f} (bound "
-            f"{floor}), wall {wall:.2f} s, stages {status['timings']}")
+        log(f"[engine] oracle {mode} mode crf={crf}: lesion IoU {iou:.3f} "
+            f"(bound {floor}), wall {wall:.2f} s, stages {status['timings']}")
         if iou <= floor:
-            raise AssertionError(f"oracle crf={crf} lesion IoU {iou}")
+            raise AssertionError(f"oracle {mode} crf={crf} lesion IoU {iou}")
+    # a pointwise model: tile mode computes every pixel patch mode does
+    missed = int((masks["patch", False] & ~masks["tile", False]).sum())
+    if missed:
+        raise AssertionError(f"{missed} patch-mode positives are negative "
+                             f"in tile mode")
 
     # the oracle CRF run on the card and on the CPU, in f32, with cuDNN's
     # TF32 switch as users have it (on, PyTorch's default): the CRF's own
@@ -505,8 +694,11 @@ def phase_server(state):
     os.makedirs(d)
     make_synthetic_slide(os.path.join(d, "colon-smoke.tiff"), 2048, 1536,
                          seed=2)
-    httpd = serve(create_app(ServerConfig(slide_dir=d, viewer_only=False)),
-                  host="127.0.0.1", port=0, quiet=True)
+    # fused_stages reaches the engine through engine_extra; patch mode's
+    # batches of 32 take the canonical decoder, tile mode the stage kernel
+    cfg = ServerConfig(slide_dir=d, viewer_only=False,
+                       engine_extra={"fused_stages": 5})
+    httpd = serve(create_app(cfg), host="127.0.0.1", port=0, quiet=True)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     base = f"http://127.0.0.1:{httpd.server_port}"
@@ -522,26 +714,31 @@ def phase_server(state):
             raise AssertionError("slide not listed")
         get("/colon-smoke.tiff.dzi")
         get("/colon-smoke.tiff")  # the viewer page selects the slide
-        n0 = read_launches()
-        get("/segment", data=b"tissuetype=Colon&crf=1")
-        t0 = time.time()
-        while True:
-            st = json.loads(get("/check_segment_status"))
-            if st["status"] == "Done":
-                break
-            if st["status"] == "Error" or time.time() - t0 > 600:
-                raise AssertionError(f"/segment: {st}")
-            time.sleep(0.5)
-        dzi = get("/colon-smoke-dgai-mask.tiff.dzi")
-        tile = get("/colon-smoke-dgai-mask.tiff_files/8/0_0.jpeg")
-        if b'Width="2048"' not in dzi or tile[:2] != b"\xff\xd8":
-            raise AssertionError("mask overlay not served")
-        moved = {k: v - n0[k] for k, v in read_launches().items()}
-        if not all(moved.values()):
-            raise AssertionError(f"/segment crf=1 launched {moved}")
-        log(f"[server] /segment crf=1 Done in {time.time() - t0:.1f} s with "
-            f"launches {moved}; mask .dzi and tile served ({len(tile)} "
-            f"bytes)")
+        for form, kernels in (
+                (b"tissuetype=Colon&crf=1",
+                 ("fused_conv3x3", "bilateral_message")),
+                (b"tissuetype=Colon&crf=1&inference_mode=tile",
+                 ("fused_conv3x3", "fused_up_stage", "bilateral_message"))):
+            n0 = read_launches()
+            get("/segment", data=form)
+            t0 = time.time()
+            while True:
+                st = json.loads(get("/check_segment_status"))
+                if st["status"] == "Done":
+                    break
+                if st["status"] == "Error" or time.time() - t0 > 600:
+                    raise AssertionError(f"/segment {form}: {st}")
+                time.sleep(0.5)
+            dzi = get("/colon-smoke-dgai-mask.tiff.dzi")
+            tile = get("/colon-smoke-dgai-mask.tiff_files/8/0_0.jpeg")
+            if b'Width="2048"' not in dzi or tile[:2] != b"\xff\xd8":
+                raise AssertionError("mask overlay not served")
+            moved = {k: v - n0[k] for k, v in read_launches().items()}
+            if sorted(k for k, v in moved.items() if v) != sorted(kernels):
+                raise AssertionError(f"/segment {form} launched {moved}")
+            log(f"[server] /segment {form.decode()} Done in "
+                f"{time.time() - t0:.1f} s with launches {moved}; mask .dzi "
+                f"and tile served ({len(tile)} bytes)")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -577,6 +774,8 @@ def main():
     for name, key, src, tpu in (
             ("fused_conv3x3", "conv", "conv_fused.cu",
              "digipathai_tpu/ops/pallas/conv_fused.py:119"),
+            ("fused_up_stage", "stage", "stage_fused.cu",
+             "digipathai_tpu/ops/pallas/stage_fused.py:172"),
             ("bilateral_message", "bilateral", "bilateral.cu",
              "digipathai_tpu/ops/pallas/bilateral.py:104")):
         kernels.append({"name": name, "route": "cuda",

@@ -6,9 +6,10 @@ interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library file is named after a hash of the source and the flags, so a
-changed source is rebuilt and a stale library is never loaded.  The build
-directory is git-ignored.  A build failure raises; nothing falls back.
+A source may include the shared headers ``csrc/*.cuh``.  The library file
+is named after a hash of the source, the headers and the flags, so a
+changed source or header is rebuilt and a stale library is never loaded.
+The build directory is git-ignored.  A build failure raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -38,6 +39,13 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
              _I, _I, _P], _I),
     },
+    "stage_fused": {
+        "dpai_fused_up_stage": (
+            # y, skip, ka, mula, offa, kb, mulb, offb, a, out, n, hh, wh, c,
+            # cs, f, relu, is_bf16, stream
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+             _I, _I, _I, _I, _I, _I, _P], _I),
+    },
     "bilateral": {
         "dpai_bilateral_message": (
             # q, img, out, h, w, L, l0, nl, r, inv2_xy, inv2_c, stream
@@ -63,9 +71,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + repr(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(repr(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,21 +1,28 @@
 """End-to-end WSI segmentation on PyTorch: the public ``getSegmentation``.
 
-Port of the patch-mode path of ``digipathai_tpu/engine/segmentation.py``:
-same signature, status strings, three pyramidal TIFFs and return value (the
+Port of ``digipathai_tpu/engine/segmentation.py`` for one device: same
+signature, status strings, three pyramidal TIFFs and return value (the
 0.3-thresholded mean map in (X, Y) orientation).  The flow: seeded or
-loaded weights -> tissue-mask patch plan -> threaded uint8 loader -> one
-device step per batch (normalize, model x TTA, stitch into a supertile
-accumulator) -> background flush of each supertile's tissue bounding box
-into host memmaps with host-computed counts -> chunked finalize ->
-threshold and pyramid writes.
+loaded weights -> tissue-mask patch plan -> inference -> chunked finalize
+-> threshold and pyramid writes.  Inference runs in one of two modes:
 
-``crf=True`` refines the finalized mean map per supertile with the
-mean-field CRF (``ops/crf.py``, whose bilateral message runs on the CUDA
-kernel ``csrc/bilateral.cu``), staging each refined tile so a crashed run
-replays it.  Options this slice does not run yet raise
+- patch mode: a threaded uint8 loader, one device step per batch
+  (normalize, model x TTA, stitch into a supertile accumulator) and a
+  background flush of each supertile's tissue bounding box into host
+  memmaps with host-computed counts;
+- tile mode (``engine/tile_infer.py``): one fully convolutional forward
+  per tissue supertile plus a ``patch_size // 2`` halo, written straight
+  into the maps.  ``fused_stages`` runs the DenseNet decoder's last stages
+  on the ``fused_up_stage`` kernel there.
+
+``crf=True`` refines the mean map per supertile with the mean-field CRF
+(``ops/crf.py``, whose bilateral message runs on the CUDA kernel
+``csrc/bilateral.cu``): in tile mode each supertile at its flush, in patch
+mode in a post-pass after finalize.  Each refined tile is staged so a
+crashed run replays it.  Options not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.  The TPU-only layout
 rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``,
-``spatial_shard``) are exact, so they are accepted and the canonical form
+``tile_local_aspp``) are exact, so they are accepted and the canonical form
 runs.
 """
 
@@ -59,26 +66,18 @@ def _not_yet(what: str, item: str):
         f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
-def _check_supported(quick, inference_mode, crf, quantized, fold_bn,
-                     fused_stages, data_parallel):
+def _check_supported(quick, inference_mode, quantized, fold_bn,
+                     data_parallel):
     if not quick:
         _not_yet("quick=False (the 3-model ensemble)",
                  "§A item 9: Inception and DeepLab, with the ensemble")
-    if inference_mode != "patch":
-        if inference_mode == "tile" and crf:
-            _not_yet("crf=True with inference_mode='tile' (the per-supertile "
-                     "CRF)", "§A item 10: tile mode")
-        if inference_mode == "tile":
-            _not_yet("inference_mode='tile'", "§A item 10: tile mode")
+    if inference_mode not in ("patch", "tile"):
         raise ValueError(f"inference_mode must be 'patch' or 'tile', "
                          f"got {inference_mode!r}")
     if quantized:
         _not_yet("quantized", "§A item 14: quantization")
     if fold_bn:
         _not_yet("fold_bn", "§A item 14: quantization and fold_bn")
-    if fused_stages:
-        _not_yet("fused_stages > 0",
-                 "§B item 2: the fused_up_stage kernel")
     if (isinstance(data_parallel, int) and not isinstance(data_parallel, bool)
             and data_parallel > 1):
         _not_yet(f"data_parallel={data_parallel}", "§A item 12: multi-device")
@@ -161,8 +160,8 @@ def getSegmentation(img_path,
     if mode not in weights_mod.MODES:
         raise ValueError(
             "Unknown mode found, allowed fields are: ['colon', 'liver', 'breast']")
-    _check_supported(quick, inference_mode, crf, quantized, fold_bn,
-                     fused_stages, data_parallel)
+    _check_supported(quick, inference_mode, quantized, fold_bn,
+                     data_parallel)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} requested, but "
@@ -185,7 +184,13 @@ def getSegmentation(img_path,
 
     bundles, variables_list = [], []
     for name in model_names:
-        b = registry.build_model(name, dtype=compute_dtype)
+        kw = {}
+        if registry.resolve_model_name(name) == "dense":
+            # the decoder's last stages on the fused_up_stage kernel (taken
+            # at N == 1 only, i.e. tile mode); s2d_decoder turns it off, as
+            # in JAX
+            kw = {"fused_stages": fused_stages, "s2d_decoder": s2d_decoder}
+        b = registry.build_model(name, dtype=compute_dtype, **kw)
         if name in _ENSEMBLE:
             v = weights_mod.load_variables(
                 b, mode, name, patch_size, status=status,
@@ -243,8 +248,9 @@ def getSegmentation(img_path,
     var_map = np.memmap(mdir / f"{stem}-var.dat", np.float32, mode_mm, shape=(Y, X))
     count_map = np.memmap(mdir / f"{stem}-count.dat", np.float32, mode_mm, shape=(Y, X))
 
-    # guards the state file and the progress sets, which the flusher mutates
-    state_lock = threading.Lock()
+    # guards the state file and the progress sets, which the flushers
+    # mutate; re-entrant because tile mode's flush saves state under it
+    state_lock = threading.RLock()
 
     def save_state(mark_finalized: bool = False, inflight=None):
         # "inflight" names a group whose memmap += writes are about to
@@ -259,74 +265,140 @@ def getSegmentation(img_path,
                  "inflight": [inflight] if inflight is not None else []}))
             os.replace(tmp, state_path)
 
-    # --- inference --------------------------------------------------------
-    # counts are computed on the host (add_counts_host), so the accumulator
-    # carries mean + var; with one prediction per patch the variance is
-    # identically zero and its plane is not fetched
-    n_preds = len(bundles) * len(tta_full)
-    fetch_planes = 1 if n_preds == 1 else 2
-    step = build_step(bundles, tta_full, patch_size, faithful_tta=faithful_tta,
-                      compute_dtype=compute_dtype,
-                      mask_predictions=mask_predictions, device=device)
-    acc_side = supertile + patch_size
-    total_batches = max(plan.total_batches, 1)
-    done = sum(len(plan.groups[gi].coords) // batch_size
-               for gi in completed if gi < len(plan.groups))
+    # --- CRF staging, shared by tile mode's per-supertile CRF and the
+    # post-pass: CRF rewrites mean_map in place per tile (non-idempotent),
+    # so each refined tile is staged to disk (atomic rename) before the
+    # assignment and unstaged after the progress marker is persisted; a
+    # crash anywhere is recovered by replaying the staged assignment.  Only
+    # a resumed run may find the CRF already applied: a fresh run's maps
+    # start anew, whatever the state file left by the last run says
+    crf_active = crf and not (mode_mm == "r+"
+                              and state_crf_applied(state_path, cfg_key))
+    crf_opts = dict(crf_opts or {})
 
-    def flush(acc, gi):
-        g = plan.groups[gi]
-        ox, oy = g.origin
-        hx = min(acc_side, X - ox)
-        hy = min(acc_side, Y - oy)
-        # fetch only the tissue bounding box of the accumulator
-        c = g.coords[g.valid]
-        rx0 = int(c[:, 0].min() - ox)
-        ry0 = int(c[:, 1].min() - oy)
-        sx = int(c[:, 0].max() - ox) + patch_size - rx0
-        sy = int(c[:, 1].max() - oy) + patch_size - ry0
-        with timer.stage("flush"):
-            host = (acc[:fetch_planes, rx0:rx0 + sx, ry0:ry0 + sy]
-                    .transpose(1, 2).contiguous().cpu().numpy())
-            save_state(inflight=gi)  # taint marker: += is not replayable
-            # host block is (planes, sy, sx) at map offset (oy+ry0, ox+rx0)
-            wy = min(sy, hy - ry0)
-            wx = min(sx, hx - rx0)
-            my, mx = oy + ry0, ox + rx0
-            mean_map[my:my + wy, mx:mx + wx] += host[0, :wy, :wx]
-            if fetch_planes > 1:
-                var_map[my:my + wy, mx:mx + wx] += host[1, :wy, :wx]
-            add_counts_host(count_map, g.coords, g.valid, patch_size)
+    def crf_tile_done(ti, staged):
         with state_lock:
-            completed.add(gi)
-        save_state()  # clears the inflight taint
+            crf_tiles_done.add(ti)
+            save_state()
+        staged.unlink(missing_ok=True)
 
-    acc = None
-    cur_group = -1
-    with maybe_profile("segmentation"), ThreadPoolExecutor(1) as flusher:
-        pending = []
-        for batch in PatchLoader(slide, plan, num_workers=num_workers,
-                                 skip_groups=completed):
-            if batch.group_index != cur_group:
-                if acc is not None:
-                    # flush in the background while the next supertile runs
-                    pending.append(flusher.submit(flush, acc, cur_group))
-                    # each pending flush pins a device accumulator
-                    while len(pending) > 2:
-                        pending.pop(0).result()
-                acc = make_accumulator(supertile, patch_size, planes=2,
-                                       device=device)
-                cur_group = batch.group_index
-            with timer.stage("infer"):
-                step(variables_list, acc, batch.patches, batch.offsets,
-                     batch.valid)
-            done += 1
-            _status_set(status, progress=int(done * 100.0 / total_batches))
-            if progress_cb is not None:
-                progress_cb(done, total_batches)
-        if acc is not None:
-            pending.append(flusher.submit(flush, acc, cur_group))
-        for fut in pending:
-            fut.result()  # surface flush errors
+    def crf_write(ti, box, refined):
+        sp = mdir / f"{stem}-crftile-{ti}.npz"
+        tmp = sp.with_name("tmp-" + sp.name)
+        np.savez(tmp, box=np.asarray(box), block=refined)
+        os.replace(tmp, sp)
+        y0, y1, x0, x1 = box
+        mean_map[y0:y1, x0:x1] = refined
+        crf_tile_done(ti, sp)
+
+    # --- inference --------------------------------------------------------
+    if inference_mode == "tile":
+        from .tile_infer import run_tile_inference
+
+        if (supertile + patch_size) % 32 != 0:
+            raise ValueError(
+                "tile mode needs (supertile + patch_size) divisible by 32")
+        tile_crf_cb = None
+        if crf_active:
+            # each supertile's mean is final at its flush in tile mode, so
+            # the CRF runs right there (ops/crf.refine_tile, the post-pass's
+            # own bucket-padded form) instead of as a serial tail
+            from ..ops.crf import refine_tile, slide_tile_index
+
+            def tile_crf_cb(g, img_tile):
+                ox, oy = g.origin
+                ti = slide_tile_index(oy, ox, X, supertile)
+                if ti in crf_tiles_done:
+                    return
+                th = min(supertile, Y - oy)
+                tw = min(supertile, X - ox)
+                probs = np.asarray(mean_map[oy:oy + th, ox:ox + tw],
+                                   np.float32)
+                if probs.max() <= 0:
+                    return  # glass only: the post-pass skips it alike
+                refined = refine_tile(np.asarray(img_tile[:th, :tw]), probs,
+                                      supertile, device=device, **crf_opts)
+                crf_write(ti, (oy, oy + th, ox, ox + tw), refined)
+
+        with maybe_profile("tile_segmentation"):
+            run_tile_inference(
+                slide, plan, bundles, tuple(variables_list), tta_full,
+                mean_map, var_map, count_map, halo=patch_size // 2,
+                status=status, timer=timer, progress_cb=progress_cb,
+                compute_dtype=compute_dtype, completed=completed,
+                on_group_done=lambda gi: save_state(),
+                faithful_tta=faithful_tta, spatial_shard=spatial_shard,
+                crf_cb=tile_crf_cb, bbox_compute=tile_bbox_compute,
+                state_lock=state_lock, device=device)
+    else:
+        # counts are computed on the host (add_counts_host), so the
+        # accumulator carries mean + var; with one prediction per patch the
+        # variance is identically zero and its plane is not fetched
+        n_preds = len(bundles) * len(tta_full)
+        fetch_planes = 1 if n_preds == 1 else 2
+        step = build_step(bundles, tta_full, patch_size,
+                          faithful_tta=faithful_tta,
+                          compute_dtype=compute_dtype,
+                          mask_predictions=mask_predictions, device=device)
+        acc_side = supertile + patch_size
+        total_batches = max(plan.total_batches, 1)
+        done = sum(len(plan.groups[gi].coords) // batch_size
+                   for gi in completed if gi < len(plan.groups))
+
+        def flush(acc, gi):
+            g = plan.groups[gi]
+            ox, oy = g.origin
+            hx = min(acc_side, X - ox)
+            hy = min(acc_side, Y - oy)
+            # fetch only the tissue bounding box of the accumulator
+            c = g.coords[g.valid]
+            rx0 = int(c[:, 0].min() - ox)
+            ry0 = int(c[:, 1].min() - oy)
+            sx = int(c[:, 0].max() - ox) + patch_size - rx0
+            sy = int(c[:, 1].max() - oy) + patch_size - ry0
+            with timer.stage("flush"):
+                host = (acc[:fetch_planes, rx0:rx0 + sx, ry0:ry0 + sy]
+                        .transpose(1, 2).contiguous().cpu().numpy())
+                save_state(inflight=gi)  # taint marker: += is not replayable
+                # host block is (planes, sy, sx) at map offset (oy+ry0, ox+rx0)
+                wy = min(sy, hy - ry0)
+                wx = min(sx, hx - rx0)
+                my, mx = oy + ry0, ox + rx0
+                mean_map[my:my + wy, mx:mx + wx] += host[0, :wy, :wx]
+                if fetch_planes > 1:
+                    var_map[my:my + wy, mx:mx + wx] += host[1, :wy, :wx]
+                add_counts_host(count_map, g.coords, g.valid, patch_size)
+            with state_lock:
+                completed.add(gi)
+            save_state()  # clears the inflight taint
+
+        acc = None
+        cur_group = -1
+        with maybe_profile("segmentation"), ThreadPoolExecutor(1) as flusher:
+            pending = []
+            for batch in PatchLoader(slide, plan, num_workers=num_workers,
+                                     skip_groups=completed):
+                if batch.group_index != cur_group:
+                    if acc is not None:
+                        # flush in the background while the next supertile runs
+                        pending.append(flusher.submit(flush, acc, cur_group))
+                        # each pending flush pins a device accumulator
+                        while len(pending) > 2:
+                            pending.pop(0).result()
+                    acc = make_accumulator(supertile, patch_size, planes=2,
+                                           device=device)
+                    cur_group = batch.group_index
+                with timer.stage("infer"):
+                    step(variables_list, acc, batch.patches, batch.offsets,
+                         batch.valid)
+                done += 1
+                _status_set(status, progress=int(done * 100.0 / total_batches))
+                if progress_cb is not None:
+                    progress_cb(done, total_batches)
+            if acc is not None:
+                pending.append(flusher.submit(flush, acc, cur_group))
+            for fut in pending:
+                fut.result()  # surface flush errors
 
     # --- finalize (chunked): mean /= count, var /= count^2 ---------------
     CHUNK = 4096
@@ -342,28 +414,10 @@ def getSegmentation(img_path,
         finalized = True
         save_state(mark_finalized=True)
 
-    # --- CRF post-pass ----------------------------------------------------
-    # CRF rewrites mean_map in place per tile (non-idempotent), so each
-    # refined tile is staged to disk (atomic rename) before the assignment
-    # and unstaged after the progress marker is persisted; a crash anywhere
-    # is recovered by replaying the staged assignment
-    if crf and not state_crf_applied(state_path, cfg_key):
+    # --- CRF post-pass: every tile not refined yet (all of them in patch
+    # mode, those a crash interrupted in tile mode) -----------------------
+    if crf_active:
         from ..ops.crf import refine_slide_crf
-
-        def crf_tile_done(ti, staged):
-            with state_lock:
-                crf_tiles_done.add(ti)
-            save_state()
-            staged.unlink(missing_ok=True)
-
-        def crf_write(ti, box, refined):
-            sp = mdir / f"{stem}-crftile-{ti}.npz"
-            tmp = sp.with_name("tmp-" + sp.name)
-            np.savez(tmp, box=np.asarray(box), block=refined)
-            os.replace(tmp, sp)
-            y0, y1, x0, x1 = box
-            mean_map[y0:y1, x0:x1] = refined
-            crf_tile_done(ti, sp)
 
         _status_set(status, status="Refining with CRF")
         with timer.stage("crf"):
@@ -377,7 +431,7 @@ def getSegmentation(img_path,
                 crf_tile_done(ti, sp)
             refine_slide_crf(slide, mean_map, supertile=supertile,
                              done=crf_tiles_done, on_tile=crf_write,
-                             device=device, **(crf_opts or {}))
+                             device=device, **crf_opts)
         mark_crf_applied(state_path, cfg_key)
 
     # --- write artifacts -------------------------------------------------

@@ -5,11 +5,21 @@ a DenseNet-121 encoder (blocks [6, 12, 24, 16], growth 32, 0.5
 transitions, BN eps 1.001e-5) and a 5-stage nearest-upsample U-Net decoder
 (320/256/128/96/64 conv + BN(1e-3) + relu blocks) with a 2-class softmax.
 
-Every 3x3 convolution runs through ``ops.conv_fused.fused_conv3x3``:
-- the dense layer's BN -> relu -> 3x3 conv folds the BN into the kernel's
-  pre-activation (as ``dense_block_chunked`` does with ``pallas_blocks``);
+Every 3x3 convolution runs through a hand-written kernel:
+- the dense layer's BN -> relu -> 3x3 conv runs ``ops.conv_fused.
+  fused_conv3x3`` with the BN folded into its pre-activation (as
+  ``dense_block_chunked`` does with ``pallas_blocks``);
 - each decoder conv block is conv + bias with the BN folded into the
-  kernel's epilogue affine (as ``fused_decoder`` does).
+  kernel's epilogue affine (as ``fused_decoder`` does);
+- with ``fused_stages=k`` and a single input (N == 1, a tile-mode
+  supertile), the last k decoder stages each run as one
+  ``ops.stage_fused.fused_up_stage`` (as the JAX model's ``fused_stages``
+  does); at N > 1 the decoder above runs instead, as in JAX.
+
+The JAX model's TPU layout options (``halo_crop``, ``s2d_stem``, ``wpack``,
+``s2d_decoder``) are exact rewrites; they are accepted and the canonical
+form runs.  ``s2d_decoder`` keeps JAX's one side effect: it turns
+``fused_stages`` off.
 
 Submodules carry the Keras/flax names (``conv2_block1_1_conv``, ``conv2d_3``,
 ``batch_normalization_7``, ...) and parameters keep flax's layouts (HWIO
@@ -23,7 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import conv_fused
+from ..ops import conv_fused, stage_fused
+from ..ops.stage_fused import upsample2x
 
 BN_EPS_DENSE = 1.001e-5
 BN_EPS_DECODER = 1e-3
@@ -85,13 +96,6 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsampling of an NHWC tensor."""
-    n, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(
-        n, 2 * h, 2 * w, c)
-
-
 def conv1x1(x: torch.Tensor, conv: Conv) -> torch.Tensor:
     """A 1x1 conv on NHWC is a matmul over channels."""
     y = torch.matmul(x, conv.kernel[0, 0].to(x.dtype))
@@ -120,11 +124,14 @@ class DenseNet121UNet(nn.Module):
     """(N, H, W, 3) normalized patches -> (N, H, W, num_classes) f32 softmax."""
 
     def __init__(self, blocks=(6, 12, 24, 16), growth: int = 32,
-                 num_classes: int = 2, dtype=torch.bfloat16):
+                 num_classes: int = 2, dtype=torch.bfloat16,
+                 fused_stages: int = 0, halo_crop: int = 0, s2d_stem: int = 0,
+                 wpack: bool = False, s2d_decoder: bool = False):
         super().__init__()
         self.blocks = tuple(blocks)
         self.growth = growth
         self.dtype = dtype
+        self.fused_stages = 0 if s2d_decoder else int(fused_stages)
         add = self.add_module
         add("conv1__conv", Conv(7, 7, 3, 64, use_bias=False))
         add("conv1__bn", BatchNorm(64, BN_EPS_DENSE))
@@ -187,12 +194,21 @@ class DenseNet121UNet(nn.Module):
         y = conv1x1(y, getattr(self, f"{name}_conv"))
         return _nhwc(F.avg_pool2d(_nchw(y), 2))
 
-    def _conv_block(self, x, i):
+    def _decoder_params(self, i):
+        """(kernel, bias, mul, add) of decoder conv block i, BN folded."""
         conv = getattr(self, "conv2d" if i == 0 else f"conv2d_{i}")
         bn = getattr(self, "batch_normalization" if i == 0
                      else f"batch_normalization_{i}")
-        mul, add = bn.folded()
-        return conv_fused.fused_conv3x3(x, conv.kernel, conv.bias, mul, add)
+        return (conv.kernel, conv.bias, *bn.folded())
+
+    def _conv_block(self, x, i):
+        return conv_fused.fused_conv3x3(x, *self._decoder_params(i))
+
+    def _fused_stage(self, y, skip, i):
+        """Decoder conv blocks i and i + 1 as one fused_up_stage."""
+        return stage_fused.fused_up_stage(
+            y, *self._decoder_params(i), *self._decoder_params(i + 1),
+            None if skip is None else skip.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -211,12 +227,18 @@ class DenseNet121UNet(nn.Module):
                 y = self._transition(y, f"pool{bi + 2}")
         y = self.bn(y)  # no relu after 'bn', faithful to the reference
 
+        n_fused = (min(self.fused_stages, len(self.stages))
+                   if x.shape[0] == 1 else 0)
+        first_fused = len(self.stages) - n_fused
         ci = 0
-        for (feats, cs), skip in zip(self.stages, skips[::-1] + [None]):
-            y = self._conv_block(upsample2x(y), ci)
-            if skip is not None:
-                y = torch.cat([y, skip.to(dt)], dim=-1)
-            y = self._conv_block(y, ci + 1)
+        for si, skip in enumerate(skips[::-1] + [None]):
+            if si >= first_fused:
+                y = self._fused_stage(y, skip, ci)
+            else:
+                y = self._conv_block(upsample2x(y), ci)
+                if skip is not None:
+                    y = torch.cat([y, skip.to(dt)], dim=-1)
+                y = self._conv_block(y, ci + 1)
             ci += 2
         logits = conv1x1(y, getattr(self, f"conv2d_{ci}"))
         return torch.softmax(logits.float(), dim=-1)

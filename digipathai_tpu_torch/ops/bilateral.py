@@ -19,10 +19,15 @@ kernel or raises.  ``bilateral_message.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: labels one launch handles (the kernel's register accumulators)
 MAX_LABELS = 4
+
+#: tile mode refines two supertiles at once, one per flusher thread
+_COUNT_LOCK = threading.Lock()
 
 
 def bilateral_message(q, image, sigma_xy: float, sigma_rgb: float,
@@ -67,7 +72,8 @@ def bilateral_message(q, image, sigma_xy: float, sigma_rgb: float,
                 raise RuntimeError(
                     f"bilateral_message: kernel launch failed with CUDA error "
                     f"{rc} (H={h} W={w} L={n_labels} r={radius})")
-            bilateral_message.launches += 1
+            with _COUNT_LOCK:
+                bilateral_message.launches += 1
     return out
 
 

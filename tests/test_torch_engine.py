@@ -117,14 +117,31 @@ def test_resume_reproduces_finished_run(synthetic_slide, tmp_path,
         np.testing.assert_array_equal(again[2][k], first[2][k])
 
 
+@pytest.mark.parametrize("inference_mode", ["patch", "tile"])
+def test_fresh_rerun_refines_again(synthetic_slide, tmp_path, monkeypatch,
+                                   inference_mode):
+    """A fresh (resume=False) crf=True run in the cache where the same
+    slide's last run finished its CRF starts its maps anew, so it must run
+    the CRF again and give the same maps."""
+    path, _ = synthetic_slide
+    kw = dict(model="oracle", crf=True, stride_size=128,
+              crf_opts={"n_iters": 2, "bil_radius": 4},
+              inference_mode=inference_mode)
+    runs = []
+    for _ in range(2):
+        status = {}
+        runs.append(_run(_torch_engine(), path, tmp_path, monkeypatch,
+                         status=status, **kw))
+        assert "crf" in status["timings"], status
+    np.testing.assert_array_equal(runs[1][0], runs[0][0])
+    np.testing.assert_array_equal(runs[1][2]["mean"], runs[0][2]["mean"])
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"crf": True, "inference_mode": "tile"}, "CRF"),
-    ({"inference_mode": "tile"}, "tile mode"),
     ({"quick": False}, "ensemble"),
     ({"model": "inception"}, "Inception"),
     ({"quantized": "static"}, "quantization"),
     ({"fold_bn": True}, "fold_bn"),
-    ({"fused_stages": 2}, "fused_up_stage"),
     ({"data_parallel": 2}, "multi-device"),
 ])
 def test_unsupported_kwargs_raise(synthetic_slide, tmp_path, monkeypatch, kw,
@@ -177,7 +194,8 @@ print("ok")
 
 def test_every_module_stands_alone(synthetic_slide, tmp_path):
     """Importing every module of the port and running the oracle engine
-    with crf=True loads no jax, flax or digipathai_tpu module."""
+    with crf=True, in patch and in tile mode, loads no jax, flax or
+    digipathai_tpu module."""
     code = f"""
 import importlib, pkgutil, sys
 import digipathai_tpu_torch as pkg
@@ -185,15 +203,19 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) > 30, names
-status = {{}}
-out = pkg.getSegmentation(
-    {synthetic_slide[0]!r}, patch_size=128, stride_size=128, batch_size=8,
-    model="oracle", mode="colon", supertile=512, num_workers=2, crf=True,
-    crf_opts={{"n_iters": 2, "bil_radius": 4}}, status=status,
-    probs_path={str(tmp_path / "p.tiff")!r}, mask_path={str(tmp_path / "m.tiff")!r},
-    uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
-assert out.shape == (2048, 1536), out.shape
-assert "crf" in status["timings"], status
+for name in ("ops.stage_fused", "engine.tile_infer"):
+    assert "digipathai_tpu_torch." + name in names, name
+for mode in ("patch", "tile"):
+    status = {{}}
+    out = pkg.getSegmentation(
+        {synthetic_slide[0]!r}, patch_size=128, stride_size=128, batch_size=8,
+        model="oracle", mode="colon", supertile=512, num_workers=2, crf=True,
+        crf_opts={{"n_iters": 2, "bil_radius": 4}}, status=status,
+        inference_mode=mode, probs_path={str(tmp_path / "p.tiff")!r},
+        mask_path={str(tmp_path / "m.tiff")!r},
+        uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
+    assert out.shape == (2048, 1536), out.shape
+    assert "crf" in status["timings"], status
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {_NOT_LOADED!r})
 assert not loaded, loaded
 print("ok")

@@ -1,0 +1,226 @@
+"""The port's fused_up_stage (plain path on the CPU) against the JAX Pallas
+kernel in interpret mode, and the DenseNet121-U-Net with fused_stages.
+
+The CUDA kernel itself has no interpret mode; chip_smoke.py compares it with
+the plain version on the card.  Here the wrapper's checks, its CPU dispatch
+and its refusal to fall back for a CUDA tensor are tested.
+"""
+
+import types
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+torch.set_num_threads(2)
+
+F32_TOL = 1e-4      # the bound of tests/test_stage_fused.py
+BF16_REL = 2 ** -6  # of max(1, max|ref|): a few bf16 roundings apart
+
+# (hh, wh, c, cs, f, relu): the shapes of tests/test_stage_fused.py, with
+# and without a skip, and its no-relu case
+SHAPES = [(8, 12, 5, 3, 7, True), (16, 16, 8, 0, 6, True),
+          (10, 18, 3, 4, 5, True), (6, 6, 4, 2, 5, False)]
+NAMES = ("y", "ka", "ba", "ma", "aa", "kb", "bb", "mb", "ab", "skip")
+
+
+def _stage(seed, hh, wh, c, cs, f, n=1):
+    """numpy inputs as tests/test_stage_fused.py draws them."""
+    rng = np.random.default_rng(seed)
+    d = {"y": rng.normal(0, 1, (n, hh, wh, c)),
+         "ka": rng.normal(0, 0.3, (3, 3, c, f)),
+         "kb": rng.normal(0, 0.3, (3, 3, f + cs, f)),
+         "ba": rng.normal(0, 0.1, (f,)), "bb": rng.normal(0, 0.1, (f,)),
+         "ma": rng.uniform(0.5, 1.5, (f,)), "mb": rng.uniform(0.5, 1.5, (f,)),
+         "aa": rng.normal(0, 0.1, (f,)), "ab": rng.normal(0, 0.1, (f,)),
+         "skip": rng.normal(0, 1, (n, 2 * hh, 2 * wh, cs)) if cs else None}
+    return {k: None if v is None else v.astype(np.float32)
+            for k, v in d.items()}
+
+
+def _jax(d, relu, dtype):
+    from digipathai_tpu.ops.pallas.stage_fused import fused_up_stage
+
+    a = [None if d[k] is None else jnp.asarray(d[k]) for k in NAMES]
+    a[0] = a[0].astype(dtype)
+    if a[9] is not None:
+        a[9] = a[9].astype(dtype)
+    out = fused_up_stage(*a, relu=relu, block_rows=4, block_cols=32,
+                         interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torch(d, relu, dtype):
+    from digipathai_tpu_torch.ops.stage_fused import fused_up_stage
+
+    a = [None if d[k] is None else torch.from_numpy(d[k]) for k in NAMES]
+    a[0] = a[0].to(dtype)
+    if a[9] is not None:
+        a[9] = a[9].to(dtype)
+    return fused_up_stage(*a, relu=relu).float().numpy()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_matches_pallas_kernel_f32(shape):
+    hh, wh, c, cs, f, relu = shape
+    d = _stage(hh * 31 + c, hh, wh, c, cs, f)
+    want = _jax(d, relu, jnp.float32)
+    got = _torch(d, relu, torch.float32)
+    assert got.shape == (1, 2 * hh, 2 * wh, f)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_matches_pallas_kernel_bf16(shape):
+    """bf16: both round ``a`` and the output once, but JAX pre-sums the
+    duplicated row taps of ka before its bf16 cast and the plain version
+    rounds each conv to bf16 before its affine."""
+    hh, wh, c, cs, f, relu = shape
+    d = _stage(hh * 31 + c, hh, wh, c, cs, f)
+    want = _jax(d, relu, jnp.bfloat16)
+    got = _torch(d, relu, torch.bfloat16)
+    err = np.abs(got - want).max()
+    assert err <= BF16_REL * max(1.0, np.abs(want).max()), err
+
+
+def test_batch_matches_single_images():
+    """N = 3 in one call equals three N = 1 calls (the kernel takes N >= 1
+    though the model calls it at N = 1 only)."""
+    d = _stage(3, 5, 7, 6, 4, 8, n=3)
+    got = _torch(d, True, torch.float32)
+    for i in range(3):
+        di = dict(d, y=d["y"][i:i + 1], skip=d["skip"][i:i + 1])
+        np.testing.assert_allclose(got[i:i + 1], _jax(di, True, jnp.float32),
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({"ka": np.zeros((3, 3, 4, 7), np.float32)}, "ka shape"),
+    ({"kb": np.zeros((3, 3, 7, 7), np.float32)}, "kb shape"),
+    ({"skip": np.zeros((1, 16, 22, 3), np.float32)}, "skip shape"),
+    ({"mb": np.zeros((6,), np.float32)}, "mulb shape"),
+])
+def test_bad_shapes_raise(bad, match):
+    d = {**_stage(0, 8, 12, 5, 3, 7), **bad}
+    with pytest.raises(ValueError, match=match):
+        _torch(d, True, torch.float32)
+
+
+def test_cuda_tensor_without_kernel_raises(monkeypatch):
+    """A CUDA tensor never takes the plain path: with no kernel available
+    the call raises.  Without a GPU, stand-in objects carry a CUDA device
+    and the build is pointed at a missing nvcc."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the kernel is available here")
+    from digipathai_tpu_torch import _build
+    from digipathai_tpu_torch.ops import stage_fused
+
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: _build.BUILD_DIR / "missing.so")
+    _build.load.cache_clear()
+    calls = []
+    monkeypatch.setattr(stage_fused, "fused_up_stage_plain",
+                        lambda *a, **k: calls.append(1))
+    cuda = torch.device("cuda", 0)
+    y = types.SimpleNamespace(device=cuda, dtype=torch.bfloat16,
+                              shape=(1, 4, 4, 8), dim=lambda: 4)
+    skip = types.SimpleNamespace(device=cuda, shape=(1, 8, 8, 8),
+                                 dim=lambda: 4)
+    before = stage_fused.fused_up_stage.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        stage_fused.fused_up_stage(y, torch.zeros(3, 3, 8, 16), None, None,
+                                   None, torch.zeros(3, 3, 24, 16), None,
+                                   None, None, skip)
+    assert calls == [] and stage_fused.fused_up_stage.launches == before
+    _build.load.cache_clear()
+
+
+# ------------------------------------------------------------------ model
+
+def _randomize(variables, seed):
+    """numpy copy of a flax tree with random BN stats/affines and biases,
+    so every folded affine is exercised."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        a = np.array(a, np.float32)
+        name = path[-1].key
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        if name in ("bias", "mean"):
+            return rng.normal(0, 0.1, a.shape).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map(
+        np.asarray, dict(jax.tree_util.tree_map_with_path(leaf, variables)))
+
+
+@pytest.fixture(scope="module")
+def dense_fused():
+    """One randomized flax tree, one 64^2 input and ONE JAX apply of
+    ``build_model("dense", fused_stages=5)`` (Pallas in interpret mode)."""
+    from digipathai_tpu.models.registry import build_model
+
+    b = build_model("dense", dtype=jnp.float32, fused_stages=5)
+    v = _randomize(b.init(64), 0)
+    x = np.random.default_rng(1).uniform(-1, 1, (1, 64, 64, 3)).astype(
+        np.float32)
+    return v, x, np.asarray(b.apply(v, jnp.asarray(x)))
+
+
+def _torch_dense(v, fused_stages):
+    from digipathai_tpu_torch.models.bridge import flax_to_torch
+    from digipathai_tpu_torch.models.registry import build_model
+
+    return flax_to_torch(v, build_model("dense", dtype=torch.float32,
+                                        fused_stages=fused_stages).module)
+
+
+@pytest.mark.parametrize("fused_stages", [0, 2, 5])
+def test_dense_fused_stages_matches_jax(dense_fused, fused_stages):
+    from digipathai_tpu_torch.ops import stage_fused
+
+    v, x, want = dense_fused
+    m = _torch_dense(v, fused_stages)
+    with mock.patch.object(stage_fused, "fused_up_stage",
+                           wraps=stage_fused.fused_up_stage) as spy, \
+            torch.inference_mode():
+        got = m(torch.from_numpy(x)).numpy()
+    assert spy.call_count == fused_stages
+    assert got.shape == want.shape == (1, 64, 64, 2)
+    assert np.abs(got - want).max() <= 1e-4
+
+
+def test_batch_of_two_takes_the_canonical_decoder(dense_fused):
+    """At N > 1 (patch mode) the fused stages fall back, as in JAX."""
+    from digipathai_tpu_torch.ops import stage_fused
+
+    v, x, _ = dense_fused
+    m = _torch_dense(v, 2)
+    x2 = np.concatenate([x, x[:, ::-1]])
+    with mock.patch.object(stage_fused, "fused_up_stage") as spy, \
+            torch.inference_mode():
+        p = m(torch.from_numpy(x2)).numpy()
+    assert spy.call_count == 0
+    assert p.shape == (2, 64, 64, 2) and np.isfinite(p).all()
+
+
+def test_bridge_loads_a_fused_stages_model(dense_fused):
+    """flax_to_torch raises on any missing or unexpected name, so a clean
+    load means the fused model keeps the canonical parameter names."""
+    from digipathai_tpu_torch.models.registry import build_model
+
+    v = dense_fused[0]
+    m = _torch_dense(v, 5)
+    assert len(m.state_dict()) == len(jax.tree_util.tree_leaves(v))
+    np.testing.assert_array_equal(m.conv2d_9.kernel.detach().numpy(),
+                                  v["params"]["conv2d_9"]["kernel"])
+    # s2d_decoder turns fused_stages off, as in JAX
+    assert build_model("dense", fused_stages=5,
+                       s2d_decoder=True).module.fused_stages == 0
