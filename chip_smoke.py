@@ -7,18 +7,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  - card name and power limit (nvidia-smi), torch/CUDA versions;
 2. build   - compile every CUDA kernel from csrc/, one nvcc per source, all
-             started together;
+             started together; each build's seconds and ptxas registers
+             and spills;
 3. kernels - each kernel against its plain PyTorch version at the main
-             paths' shapes, with timings: fused_conv3x3 at N=32 in f32 (TF32
-             off) and bf16; fused_up_stage at the five decoder stages of a
-             4352^2 tile forward in bf16, and two ragged stages in bf16 and
-             f32; bilateral_message at the CRF's 1024^2 and 1024x512 grids,
-             ragged, small, sentinel-padded and L=3 cases;
+             paths' shapes, with timings: fused_conv3x3 at every distinct
+             conv shape of a batch-32 forward and of a 4352^2 tile forward
+             in bf16 (kernel-only time from back-to-back launches in one
+             CUDA graph with operands prepared beforehand, the wrapper's
+             time, the plain version, cuDNN's conv alone, the bound, the
+             plan), then f32 (TF32 off) and ragged checks; fused_up_stage
+             at the five decoder stages of a 4352^2 tile forward in bf16
+             (kernel-only, wrapper, plain, bound, plans) and two ragged
+             stages in bf16 and f32; bilateral_message at the CRF's 1024^2
+             and 1024x512 grids, ragged, small, sentinel-padded and L=3
+             cases;
 4. model   - a full DenseNet121-U-Net forward, batch 32 at 256^2 in bf16,
-             through the kernel and through the plain version; then one
-             tile-mode forward at (1, 4352, 4352, 3) with fused_stages=5
-             (58 conv and 5 stage launches), through fused_up_stage and
-             through its plain version;
+             through the kernel and through the plain version, and one
+             torch.profiler pass over it (device busy share, the conv
+             kernel's summed time); weights loaded into that model after
+             its forwards give a fresh model's output bit for bit; then
+             one tile-mode forward at
+             (1, 4352, 4352, 3) with fused_stages=5 (58 conv and 5 stage
+             launches), through fused_up_stage and through its plain
+             version;
 5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
              mode and in tile mode with fused_stages=5, each without and
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
@@ -62,23 +73,18 @@ MODEL_BOUND = 0.02
 BF16_REL = 2.0 ** -6
 # f32 bound (TF32 off on both sides): only the summation order differs.
 F32_REL = 2e-4
-CONV_SHAPES = [  # (name, N, H, W, C, F, pre-affine)
+# fused_conv3x3 rows checked in f32 (TF32 off) as well, and the ragged
+# (scalar-path) shape: (name, N, H, W, C, F, pre-affine)
+CONV_F32_SHAPES = [
     ("dense_layer", 32, 64, 64, 128, 32, True),
     ("decoder_widest", 32, 16, 16, 1344, 320, False),
     ("decoder_largest", 32, 256, 256, 96, 64, False),
     ("ragged", 3, 13, 29, 5, 7, True),
 ]
-# fused_up_stage at the tile forward's shapes (supertile 4096 + a 128 px
-# halo: one 4352^2 forward): (name, N, Hh, Wh, C, Cs, F, relu)
+# the tile forward: supertile 4096 + a 128 px halo, one 4352^2 forward
 TILE_SIDE = 4096 + 2 * 128
-STAGE_SHAPES = [
-    ("stage1", 1, 136, 136, 1024, 1024, 320, True),
-    ("stage2", 1, 272, 272, 320, 512, 256, True),
-    ("stage3", 1, 544, 544, 256, 256, 128, True),
-    ("stage4", 1, 1088, 1088, 128, 64, 96, True),
-    ("stage5", 1, 2176, 2176, 96, 0, 64, True),
-]
-STAGE_RAGGED = [  # the scalar load path, the SAME borders, no relu
+STAGE_RAGGED = [  # the scalar load path, the SAME borders, no relu:
+    # (name, N, Hh, Wh, C, Cs, F, relu)
     ("ragged", 1, 13, 29, 5, 3, 7, True),
     ("ragged_noskip", 1, 8, 12, 5, 0, 7, False),
 ]
@@ -178,31 +184,101 @@ def phase_build(state):
     paths = _build.build_all()
     for name, path in paths.items():
         _build.load(name)
-        log(f"[build] {name}.cu -> {path.name}")
+        log(f"[build] {name}.cu -> {path.name} "
+            f"({_build.build_seconds.get(name, 0.0):.1f} s)")
         for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "Function pr")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(paths)} kernels in {time.time() - t:.2f} s")
 
 
-def conv_inputs(n, h, w, c, f, pre, dtype, seed):
+def graph_ms(fn, count=20, reps=3) -> float:
+    """Kernel-only time of ``fn`` in ms: ``count`` back-to-back calls
+    captured in one CUDA graph (no host work between them), the graph
+    replayed ``reps`` times between one pair of CUDA events, divided by
+    the number of calls."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(n, h, w, c, generator=g)
-    k = torch.randn(3, 3, c, f, generator=g) / (9 * c) ** 0.5
-    kw = {}
-    if pre:
-        kw["pre_mul"] = torch.rand(c, generator=g) + 0.5
-        kw["pre_add"] = torch.rand(c, generator=g) * 0.4 + 0.1  # halo-leak case
-        kw["relu"] = False
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / (reps * count)
+
+
+def conv_inputs(n, h, w, c, f, pre, dtype, seed):
+    """x, the HWIO kernel and the affine or pre-affine of one conv, drawn
+    on the card (the tile forward's dense layers read 151M values)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    def uni(*shape):
+        return torch.rand(*shape, generator=g, device="cuda")
+
+    x = rnd(n, h, w, c).to(dtype)
+    k = rnd(3, 3, c, f) / (9 * c) ** 0.5
+    if pre:  # pre_add > 0: the halo-leak case
+        kw = {"pre_mul": uni(c) + 0.5, "pre_add": uni(c) * 0.4 + 0.1,
+              "relu": False}
     else:
-        kw["bias"] = torch.randn(f, generator=g) * 0.1
-        kw["mul"] = torch.rand(f, generator=g) + 0.5
-        kw["add"] = torch.randn(f, generator=g) * 0.1
-    kw = {k_: (v.cuda() if isinstance(v, torch.Tensor) else v)
-          for k_, v in kw.items()}
-    return x.cuda().to(dtype), k.cuda(), kw
+        kw = {"bias": rnd(f) * 0.1, "mul": uni(f) + 0.5,
+              "add": rnd(f) * 0.1}
+    return x, k, kw
+
+
+def check(name, got, ref, rel):
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    if not torch.isfinite(got).all() or not err <= rel * scale:
+        raise AssertionError(f"{name}: max|d| {err} > {rel * scale} or "
+                             f"non-finite")
+    return err, rel * scale
+
+
+def plan_text(plan) -> str:
+    if not plan.vector:
+        return "scalar"
+    return (f"wgmma bn={plan.bn} bk={plan.bk} tile={plan.th}x{plan.tw} "
+            f"split={plan.splits} stages={plan.stages}")
+
+
+def main_path_convs():
+    """(name, (n, h, w, c, f, pre), launches per forward) of every distinct
+    conv of a batch-32 forward and of a tile forward."""
+    from digipathai_tpu_torch.models.densenet_unet import kernel_calls
+
+    rows = []
+    for tag, calls in (("patch", kernel_calls(BATCH, PATCH)),
+                       ("tile", kernel_calls(1, TILE_SIDE, 5))):
+        for kind, shape, count in calls:
+            if kind == "conv":
+                n, h, w, c, f, pre = shape
+                what = "dense" if pre else "decoder"
+                rows.append((f"{tag} {what} ({n},{h},{w},{c})->{f}", shape,
+                             count))
+    return rows
 
 
 def phase_kernels(state):
@@ -225,58 +301,86 @@ def phase_kernels(state):
 
 
 def kernels_conv(state):
+    """fused_conv3x3 at every distinct main-path shape in bf16 (kernel-only,
+    wrapper, plain and cuDNN times, bound, plan), then the f32 and ragged
+    checks."""
     import torch
     import torch.nn.functional as F
 
-    from digipathai_tpu_torch.ops.conv_fused import (fused_conv3x3,
-                                                     fused_conv3x3_plain)
+    from digipathai_tpu_torch.ops import conv_fused as cf
 
-    worst, ms, plain_ms, lib_ms, bound_ms = 0.0, 0.0, 0.0, 0.0, 0.0
-    bound_by = {}
-    for name, n, h, w, c, f, pre in CONV_SHAPES:
-        for dtype, rel in ((torch.float32, F32_REL), (torch.bfloat16, BF16_REL)):
+    tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": 0.0}
+    worst, bound_by = 0.0, {}
+    for name, (n, h, w, c, f, pre), count in main_path_convs():
+        x, k, kw = conv_inputs(n, h, w, c, f, pre, torch.bfloat16, seed=c + f)
+        relu = kw.pop("relu", True)
+        ops = cf.prepare(k, **kw, dtype=x.dtype, device=x.device)
+        plan = cf.plan_conv(n, h, w, c, 0, f, x.dtype)
+        got = cf.fused_conv3x3(x, ops, relu=relu)
+        ref = cf.fused_conv3x3_plain(x, k, **kw, relu=relu)
+        err, lim = check(f"fused_conv3x3 {name}", got, ref, BF16_REL)
+        worst = max(worst, err)
+        out = torch.empty_like(got)
+        part = cf.scratch([plan], n * h * w, f, x.device)
+        t_k = graph_ms(lambda: cf.launch(x, ops, relu=relu, out=out,
+                                         part=part, plan=plan))
+        t_w = time_ms(lambda: cf.fused_conv3x3(x, ops, relu=relu))
+        t_p = time_ms(lambda: cf.fused_conv3x3_plain(x, k, **kw, relu=relu))
+        # the library yardstick: cuDNN's conv alone (no affine, no
+        # pre-activation), channels-last bf16 on the same inputs
+        xc = x.permute(0, 3, 1, 2)
+        kc = k.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t_l = graph_ms(lambda: F.conv2d(xc, kc, padding=1))
+        flop = 2.0 * n * h * w * 9 * c * f
+        b_ms, b_by = bound(flop, 2 * (x.numel() + k.numel() + n * h * w * f),
+                           "bf16")
+        log(f"[kernels] fused_conv3x3 {name} bf16 x{count}/forward: "
+            f"max|d|={err:.3e} (bound {lim:.3e}); kernel {t_k:.4f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s), wrapper {t_w:.4f} ms, plain "
+            f"{t_p:.4f} ms, cuDNN alone {t_l:.4f} ms (kernel/cuDNN "
+            f"{t_k / t_l:.2f}), bound {b_ms:.4f} ms ({b_by}); "
+            f"{plan_text(plan)} | {state['smi']}")
+        for key, v in (("ms", t_k), ("wrapper_ms", t_w), ("plain_ms", t_p),
+                       ("bound_ms", b_ms), ("library_ms", t_l)):
+            tot[key] += count * v
+        bound_by[b_by] = bound_by.get(b_by, 0.0) + count * b_ms
+        del x, k, kw, ops, got, ref, out, part, xc, kc
+        torch.cuda.empty_cache()
+    for name, n, h, w, c, f, pre in CONV_F32_SHAPES:
+        dtypes = ((torch.float32, F32_REL),)
+        if name == "ragged":
+            dtypes += ((torch.bfloat16, BF16_REL),)
+        for dtype, rel in dtypes:
             x, k, kw = conv_inputs(n, h, w, c, f, pre, dtype, seed=c + f)
-            got = fused_conv3x3(x, k, **kw)
-            ref = fused_conv3x3_plain(x, k, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = max(1.0, ref.float().abs().max().item())
-            ok = err <= rel * scale
-            t_k = time_ms(lambda: fused_conv3x3(x, k, **kw))
-            t_p = time_ms(lambda: fused_conv3x3_plain(x, k, **kw))
-            flop = 2.0 * n * h * w * 9 * c * f
-            log(f"[kernels] {name} ({n},{h},{w},{c})->{f} "
-                f"{str(dtype).split('.')[-1]}: max|d|={err:.3e} "
-                f"bound={rel * scale:.3e} kernel {t_k:.3f} ms "
-                f"({flop / t_k / 1e9:.1f} TFLOP/s) plain {t_p:.3f} ms "
-                f"({flop / t_p / 1e9:.1f} TFLOP/s)")
-            if not ok:
-                raise AssertionError(f"fused_conv3x3 {name} {dtype}: max|d| "
-                                     f"{err} > {rel * scale}")
+            got = cf.fused_conv3x3(x, k, **kw)
+            ref = cf.fused_conv3x3_plain(x, k, **kw)
+            err, lim = check(f"fused_conv3x3 {name} {dtype}", got, ref, rel)
+            t_w = time_ms(lambda: cf.fused_conv3x3(x, k, **kw))
+            t_p = time_ms(lambda: cf.fused_conv3x3_plain(x, k, **kw))
+            log(f"[kernels] fused_conv3x3 {name} ({n},{h},{w},{c})->{f} "
+                f"{str(dtype).split('.')[-1]}: max|d|={err:.3e} (bound "
+                f"{lim:.3e}); wrapper {t_w:.3f} ms, plain {t_p:.3f} ms; "
+                f"{plan_text(cf.plan_conv(n, h, w, c, 0, f, dtype))}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-                # the library yardstick: cuDNN's conv alone (no affine, no
-                # pre-activation), channels-last bf16 on the same inputs
-                xc = x.permute(0, 3, 1, 2)
-                kc = k.to(dtype).permute(3, 2, 0, 1).contiguous(
-                    memory_format=torch.channels_last)
-                t_l = time_ms(lambda: F.conv2d(xc, kc, padding=1))
-                b_ms, b_by = bound(flop, 2 * (x.numel() + k.numel()
-                                              + n * h * w * f), "bf16")
-                log(f"[kernels]   bf16 bound {b_ms:.4f} ms ({b_by}); "
-                    f"cuDNN conv2d alone {t_l:.3f} ms")
-                if name != "ragged":
-                    ms += t_k
-                    plain_ms += t_p
-                    lib_ms += t_l
-                    bound_ms += b_ms
-                    bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
             del x, k, kw, got, ref
     torch.cuda.empty_cache()
-    state["conv"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
+    log(f"[kernels] fused_conv3x3 per batch-32 forward + tile forward "
+        f"(launch-weighted): kernel {tot['ms']:.3f} ms, wrapper "
+        f"{tot['wrapper_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
+        f"alone {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"| {state['smi']}")
+    state["conv"] = {"max_abs_err": worst, **tot,
                      "bound_by": max(bound_by, key=bound_by.get),
-                     "library_ms": lib_ms}
+                     "ms_covers": "the 68 launches of one batch-32 forward "
+                                  "and the 58 of one tile forward, each "
+                                  "shape's time times its launches; ms "
+                                  "kernel-only (CUDA graph), wrapper_ms "
+                                  "per call with operands prepared "
+                                  "beforehand; launches: the dense patch "
+                                  "run"}
 
 
 def stage_inputs(n, hh, wh, c, cs, f, dtype, seed):
@@ -314,52 +418,71 @@ def stage_work(n, hh, wh, c, cs, f, itemsize):
 
 
 def kernels_stage(state):
+    """fused_up_stage at the five stages of a tile forward in bf16
+    (kernel-only, wrapper and plain times, bound, plans), then the ragged
+    rows in bf16 and f32."""
     import torch
 
-    from digipathai_tpu_torch.ops.stage_fused import (fused_up_stage,
-                                                      fused_up_stage_plain)
+    from digipathai_tpu_torch.models.densenet_unet import kernel_calls
+    from digipathai_tpu_torch.ops import stage_fused as sf
 
-    worst, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
-    bound_by = {}
-    rows = [(r, torch.bfloat16) for r in STAGE_SHAPES]
-    rows += [(r, dt) for r in STAGE_RAGGED
+    tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    worst, bound_by = 0.0, {}
+    rows = [(f"stage{i + 1}", *shape, True, torch.bfloat16)
+            for i, (_, shape, _) in enumerate(
+                r for r in kernel_calls(1, TILE_SIDE, 5) if r[0] == "stage")]
+    rows += [(*r, dt) for r in STAGE_RAGGED
              for dt in (torch.bfloat16, torch.float32)]
-    for (name, n, hh, wh, c, cs, f, relu), dtype in rows:
+    for name, n, hh, wh, c, cs, f, relu, dtype in rows:
         args = stage_inputs(n, hh, wh, c, cs, f, dtype, seed=c + cs + f)
-        got = fused_up_stage(*args, relu=relu)
-        ref = fused_up_stage_plain(*args, relu=relu)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = max(1.0, ref.float().abs().max().item())
+        y, skip = args[0], args[-1]
+        opa, opb = sf.prepare_stage(*args[1:9], dtype=dtype, device=y.device)
+        plans = sf.stage_plans(n, hh, wh, c, cs, f, dtype)
+        got = sf.fused_up_stage(y, opa, None, None, None, opb, None, None,
+                                None, skip, relu=relu)
+        ref = sf.fused_up_stage_plain(*args, relu=relu)
         rel = BF16_REL if dtype == torch.bfloat16 else F32_REL
-        if not torch.isfinite(got).all() or not err <= rel * scale:
-            raise AssertionError(f"fused_up_stage {name} {dtype}: max|d| "
-                                 f"{err} > {rel * scale} or non-finite")
-        t_k = time_ms(lambda: fused_up_stage(*args, relu=relu), reps=5)
-        t_p = time_ms(lambda: fused_up_stage_plain(*args, relu=relu), reps=5)
+        err, lim = check(f"fused_up_stage {name} {dtype}", got, ref, rel)
+        out, a = torch.empty_like(got), torch.empty_like(got)
+        part = sf.scratch(plans, n * 4 * hh * wh, f, y.device)
+        t_k = graph_ms(lambda: sf.launch(y, opa, opb, skip, relu=relu,
+                                         out=out, a=a, part=part,
+                                         plans=plans), count=5, reps=2)
+        t_w = time_ms(lambda: sf.fused_up_stage(*args, relu=relu), reps=5)
+        t_p = time_ms(lambda: sf.fused_up_stage_plain(*args, relu=relu),
+                      reps=5)
         flop, nbytes = stage_work(n, hh, wh, c, cs, f, dtype.itemsize)
         b_ms, b_by = bound(flop, nbytes, "bf16" if dtype == torch.bfloat16
                            else "f32")
         log(f"[kernels] fused_up_stage {name} y ({n},{hh},{wh},{c}) skip "
             f"Cs={cs} -> F={f} {str(dtype).split('.')[-1]}: max|d|={err:.3e} "
-            f"bound={rel * scale:.3e} kernel {t_k:.3f} ms "
-            f"({flop / t_k / 1e9:.1f} TFLOP/s) plain {t_p:.3f} ms "
-            f"({flop / t_p / 1e9:.1f} TFLOP/s) bound {b_ms:.4f} ms ({b_by}, "
-            f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) | {state['smi']}")
+            f"(bound {lim:.3e}); kernel {t_k:.3f} ms "
+            f"({flop / t_k / 1e9:.1f} TFLOP/s), wrapper {t_w:.3f} ms, plain "
+            f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flop / 1e9:.1f} "
+            f"GFLOP, {nbytes / 1e9:.3f} GB); convA {plan_text(plans[0])}; "
+            f"convB {plan_text(plans[1])} | {state['smi']}")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
         if not name.startswith("ragged"):
-            ms += t_k
-            plain_ms += t_p
-            bound_ms += b_ms
+            for key, v in (("ms", t_k), ("wrapper_ms", t_w),
+                           ("plain_ms", t_p), ("bound_ms", b_ms)):
+                tot[key] += v
             bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
-        del args, got, ref
+        del args, y, skip, opa, opb, got, ref, out, a, part
         torch.cuda.empty_cache()
+    log(f"[kernels] fused_up_stage, five stages of one tile forward: kernel "
+        f"{tot['ms']:.3f} ms, wrapper {tot['wrapper_ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"| {state['smi']}")
     # no single PyTorch call computes a whole decoder stage: library_ms null
-    state["stage"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms,
+    state["stage"] = {"max_abs_err": worst, **tot,
                       "bound_by": max(bound_by, key=bound_by.get),
-                      "library_ms": None}
+                      "library_ms": None,
+                      "ms_covers": "the five launches of one tile forward; "
+                                   "ms kernel-only (CUDA graph), wrapper_ms "
+                                   "per call on the raw parameters (operands "
+                                   "prepared in the call); launches: the "
+                                   "dense tile run"}
 
 
 def bilateral_work(h, w, n_labels, r):
@@ -422,7 +545,10 @@ def kernels_bilateral(state):
     state["bilateral"] = {"max_abs_err": worst, "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": max(bound_by, key=bound_by.get),
-                          "library_ms": None}
+                          "library_ms": None,
+                          "ms_covers": "one call at each crf_ shape, per "
+                                       "call with its host work; launches: "
+                                       "the dense patch run with crf=True"}
 
 
 def phase_model(state):
@@ -460,9 +586,80 @@ def phase_model(state):
         f"| {state['smi']}")
     if d.max().item() > MODEL_BOUND:
         raise AssertionError(f"model max|dp| {d.max().item()} > {MODEL_BOUND}")
+    profile_forward(state, m, x)
+    reload_check(m, x, p)
     del m, u8, x, p, q, d
     torch.cuda.empty_cache()
     tile_forward(state)
+
+
+def reload_check(m, x, before):
+    """Weights loaded after a forward take effect on the card: load another
+    seed's weights, with BN statistics away from identity, into ``m`` (whose
+    prepared operands are cached) and hold its output bit for bit against a
+    model built with those weights."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    fresh = build_model("dense", dtype=torch.bfloat16).init(PATCH,
+                                                            seed=1).cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for name, t in fresh.state_dict().items():
+            if name.endswith(("scale", "var")):
+                t.copy_(torch.rand(t.shape, generator=g, device="cuda") + 0.5)
+            elif name.endswith("mean"):
+                t.normal_(0.0, 0.1, generator=g)
+    m.load_state_dict(fresh.state_dict())
+    with torch.inference_mode():
+        got, want = m(x), fresh(x)
+    if torch.equal(got, before) or not torch.equal(got, want):
+        raise AssertionError("weights loaded after a forward did not take "
+                             "effect: the prepared operands are stale")
+    log("[model] weights loaded after a forward: output equals a fresh "
+        "model's bit for bit")
+    del fresh, got, want
+
+
+def profile_forward(state, m, x, reps=3):
+    """One torch.profiler pass over ``reps`` batch-32 forwards: the device's
+    busy share (the union of kernel intervals over the span from the first
+    kernel's start to the last one's end) and the summed time of the conv
+    kernel's launches (conv_wgmma, splitk_reduce, conv_fma)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        m(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                m(x)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.time_range.end > e.time_range.start]
+    if not kernels:
+        log("[model] profiler: no device time recorded (CUDA events above "
+            "stand)")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = end - spans[0][0]
+    ours = sum(e.time_range.end - e.time_range.start for e in kernels
+               if any(k in e.name for k in ("conv_wgmma", "splitk_reduce",
+                                             "conv_fma")))
+    log(f"[model] profiler over {reps} batch-32 forwards: device busy "
+        f"{busy / window:.3f} of {window / 1e3 / reps:.2f} ms per forward; "
+        f"kernels {busy / 1e3 / reps:.2f} ms per forward, of which the conv "
+        f"kernel {ours / 1e3 / reps:.2f} ms; {len(kernels)} kernel events "
+        f"| {state['smi']}")
 
 
 def tile_forward(state):

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -31,20 +32,21 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ctypes signature of each library's entry points: name -> (argtypes, restype)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PLAN = ctypes.POINTER(ctypes.c_int)  # a host int[6]: ConvPlan.as_c
 SIGNATURES = {
     "conv_fused": {
         "dpai_fused_conv3x3": (
-            # x, w, mul, off, pre_mul, pre_add, out, n, h, w, c, f, relu,
-            # is_bf16, stream
-            [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
-             _I, _I, _P], _I),
+            # x, w, mul, off, pre_mul, pre_add, out, part, n, h, w, c, f,
+            # relu, is_bf16, plan (int[6]), stream
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _PLAN, _P], _I),
     },
     "stage_fused": {
         "dpai_fused_up_stage": (
-            # y, skip, ka, mula, offa, kb, mulb, offb, a, out, n, hh, wh, c,
-            # cs, f, relu, is_bf16, stream
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
-             _I, _I, _I, _I, _I, _I, _P], _I),
+            # y, skip, ka, mula, offa, kb, mulb, offb, a, out, part, n, hh,
+            # wh, c, cs, f, relu, is_bf16, plan_a, plan_b, stream
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _I, _PLAN, _PLAN, _P], _I),
     },
     "bilateral": {
         "dpai_bilateral_message": (
@@ -56,6 +58,8 @@ SIGNATURES = {
 
 #: ptxas resource report (registers, shared memory, spills) of each build
 build_logs: dict = {}
+#: seconds each build took
+build_seconds: dict = {}
 
 
 def nvcc_path() -> str:
@@ -89,7 +93,9 @@ def build(name: str) -> Path:
     os.close(fd)
     try:
         cmd = [nvcc, *FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        t0 = time.monotonic()
         r = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds[name] = time.monotonic() - t0
         if r.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed to build {name}.cu (exit {r.returncode}):\n"

@@ -16,6 +16,14 @@ Every 3x3 convolution runs through a hand-written kernel:
   ``ops.stage_fused.fused_up_stage`` (as the JAX model's ``fused_stages``
   does); at N > 1 the decoder above runs instead, as in JAX.
 
+Each kernel takes its operands prepared once
+(``conv_fused.prepare``: the bf16 kernel packed for its plan, the folded
+affine, the pre-affine; convA's kernel folded for the upsample), cached per
+conv and rebuilt when one of its parameters changes (keyed on each
+parameter's device, ``data_ptr`` and ``_version``), so weights loaded after
+a first forward take effect.  On a CPU input the wrappers run their plain
+versions on the operands' raw parameters.
+
 The JAX model's TPU layout options (``halo_crop``, ``s2d_stem``, ``wpack``,
 ``s2d_decoder``) are exact rewrites; they are accepted and the canonical
 form runs.  ``s2d_decoder`` keeps JAX's one side effect: it turns
@@ -51,6 +59,11 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.init_scale = init_scale  # variance scale: 1 lecun, 2 he
 
+    def params(self):
+        """The conv's tensors: the kernel and the bias if it has one."""
+        return (self.kernel,) if self.bias is None else (self.kernel,
+                                                         self.bias)
+
     def reset_parameters(self, generator: torch.Generator):
         """flax's variance_scaling(scale, "fan_in", "truncated_normal")."""
         kh, kw, cin, _ = self.kernel.shape
@@ -81,6 +94,10 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
+    def params(self):
+        """Every tensor the folded affine depends on."""
+        return (self.scale, self.bias, self.mean, self.var)
+
     def folded(self):
         """(mul, add), f32: BN(x) == x * mul + add."""
         mul = self.scale * torch.rsqrt(self.var + self.eps)
@@ -108,6 +125,37 @@ def _nchw(x):
 
 def _nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+DECODER = (320, 256, 128, 96, 64)  # features per decoder stage
+
+
+def kernel_calls(n: int, side: int, fused_stages: int = 0,
+                 blocks=(6, 12, 24, 16), growth: int = 32):
+    """The distinct kernel calls of one forward of an (n, side, side, 3)
+    input, in order: ``(kernel, shape, calls)`` with kernel ``"conv"``
+    (shape ``(n, h, w, c, f, pre_affine)``) or ``"stage"`` (shape ``(n, hh,
+    wh, c, cs, f)``).  ``fused_stages`` applies at n == 1, as in forward."""
+    out = []
+    r, c = side // 4, 64
+    skips = [(side // 2, 64)]
+    for bi, nl in enumerate(blocks):
+        out.append(("conv", (n, r, r, 4 * growth, growth, True), nl))
+        c += nl * growth
+        if bi < len(blocks) - 1:
+            skips.append((r, c))
+            r, c = r // 2, c // 2
+    n_fused = min(fused_stages, len(DECODER)) if n == 1 else 0
+    for si, (feats, skip) in enumerate(zip(DECODER, skips[::-1] + [None])):
+        cs = 0 if skip is None else skip[1]
+        if si >= len(DECODER) - n_fused:
+            out.append(("stage", (n, r, r, c, cs, feats), 1))
+        else:
+            out.append(("conv", (n, 2 * r, 2 * r, c, feats, False), 1))
+            out.append(("conv", (n, 2 * r, 2 * r, feats + cs, feats, False),
+                        1))
+        r, c = 2 * r, feats
+    return out
 
 
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
@@ -154,8 +202,7 @@ class DenseNet121UNet(nn.Module):
                 c //= 2
         add("bn", BatchNorm(c, BN_EPS_DENSE))
         # decoder: (features, skip channels) per stage, deepest first
-        self.stages = [(320, skips[3]), (256, skips[2]), (128, skips[1]),
-                       (96, skips[0]), (64, 0)]
+        self.stages = list(zip(DECODER, skips[::-1] + [0]))
         ci = 0
         for feats, cs in self.stages:
             for cin in (c, feats + cs):
@@ -167,6 +214,20 @@ class DenseNet121UNet(nn.Module):
                 ci += 1
             c = feats
         add(f"conv2d_{ci}", Conv(1, 1, c, num_classes))
+        self._prepared = {}  # name -> (stamp, operands): see _operands
+
+    def _operands(self, key, params, build):
+        """``build()``'s result, cached under ``key`` until one of
+        ``params`` (or the compute dtype) changes.  With gradients on it is
+        built afresh, so the parameters stay in the graph."""
+        if torch.is_grad_enabled():
+            return build()
+        stamp = (self.dtype, tuple((p.device, p.data_ptr(), p._version)
+                                   for p in params))
+        hit = self._prepared.get(key)
+        if hit is None or hit[0] != stamp:
+            hit = self._prepared[key] = (stamp, build())
+        return hit[1]
 
     def _dense_block(self, x, n, name):
         """Dense block with its concat preallocated: layer i reads the first
@@ -179,13 +240,21 @@ class DenseNet121UNet(nn.Module):
             ln = f"{name}_block{i + 1}"
             # BN0 -> relu in dt arithmetic (the JAX chunked encoder's form),
             # then the 1x1 conv with f32 accumulation and one rounding
-            mul0, add0 = getattr(self, f"{ln}_0_bn").folded()
-            hpre = torch.relu(buf[..., :c] * mul0.to(dt) + add0.to(dt))
+            bn0 = getattr(self, f"{ln}_0_bn")
+            mul0, add0 = self._operands(
+                f"{ln}_0", bn0.params(),
+                lambda: tuple(t.to(dt) for t in bn0.folded()))
+            hpre = torch.relu(buf[..., :c] * mul0 + add0)
             y = conv1x1(hpre, getattr(self, f"{ln}_1_conv"))
-            mul1, add1 = getattr(self, f"{ln}_1_bn").folded()
+            bn1 = getattr(self, f"{ln}_1_bn")
+            kernel = getattr(self, f"{ln}_2_conv").kernel
+            ops = self._operands(
+                f"{ln}_2", (kernel, *bn1.params()),
+                lambda: conv_fused.prepare(
+                    kernel, None, None, None, *bn1.folded(), dtype=dt,
+                    device=y.device))
             buf[..., c:c + self.growth] = conv_fused.fused_conv3x3(
-                y, getattr(self, f"{ln}_2_conv").kernel, relu=False,
-                pre_mul=mul1, pre_add=add1)
+                y, ops, relu=False)
             c += self.growth
         return buf
 
@@ -194,21 +263,38 @@ class DenseNet121UNet(nn.Module):
         y = conv1x1(y, getattr(self, f"{name}_conv"))
         return _nhwc(F.avg_pool2d(_nchw(y), 2))
 
-    def _decoder_params(self, i):
-        """(kernel, bias, mul, add) of decoder conv block i, BN folded."""
+    def _decoder_modules(self, i):
         conv = getattr(self, "conv2d" if i == 0 else f"conv2d_{i}")
         bn = getattr(self, "batch_normalization" if i == 0
                      else f"batch_normalization_{i}")
+        return conv, bn
+
+    def _decoder_params(self, i):
+        """(kernel, bias, mul, add) of decoder conv block i, BN folded."""
+        conv, bn = self._decoder_modules(i)
         return (conv.kernel, conv.bias, *bn.folded())
 
+    def _decoder_stamp(self, *blocks):
+        return [p for i in blocks for m in self._decoder_modules(i)
+                for p in m.params()]
+
     def _conv_block(self, x, i):
-        return conv_fused.fused_conv3x3(x, *self._decoder_params(i))
+        ops = self._operands(
+            f"decoder{i}", self._decoder_stamp(i),
+            lambda: conv_fused.prepare(*self._decoder_params(i),
+                                       dtype=self.dtype, device=x.device))
+        return conv_fused.fused_conv3x3(x, ops)
 
     def _fused_stage(self, y, skip, i):
         """Decoder conv blocks i and i + 1 as one fused_up_stage."""
-        return stage_fused.fused_up_stage(
-            y, *self._decoder_params(i), *self._decoder_params(i + 1),
-            None if skip is None else skip.to(self.dtype))
+        skip = None if skip is None else skip.to(self.dtype)
+        opa, opb = self._operands(
+            f"stage{i}", self._decoder_stamp(i, i + 1),
+            lambda: stage_fused.prepare_stage(
+                *self._decoder_params(i), *self._decoder_params(i + 1),
+                dtype=self.dtype, device=y.device))
+        return stage_fused.fused_up_stage(y, opa, None, None, None, opb,
+                                          None, None, None, skip)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

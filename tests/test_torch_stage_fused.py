@@ -54,14 +54,31 @@ def _jax(d, relu, dtype):
     return np.asarray(out.astype(jnp.float32))
 
 
-def _torch(d, relu, dtype):
-    from digipathai_tpu_torch.ops.stage_fused import fused_up_stage
-
+def _args(d, dtype):
     a = [None if d[k] is None else torch.from_numpy(d[k]) for k in NAMES]
     a[0] = a[0].to(dtype)
     if a[9] is not None:
         a[9] = a[9].to(dtype)
-    return fused_up_stage(*a, relu=relu).float().numpy()
+    return a
+
+
+def _torch(d, relu, dtype):
+    from digipathai_tpu_torch.ops.stage_fused import fused_up_stage
+
+    return fused_up_stage(*_args(d, dtype), relu=relu).float().numpy()
+
+
+def _folded(d, relu, dtype):
+    """The stage's plain version with convA on folded taps, as the kernel
+    runs it."""
+    from digipathai_tpu_torch.ops.conv_fused import fused_conv3x3_plain
+    from digipathai_tpu_torch.ops.stage_fused import conv_up_folded_plain
+
+    y, ka, ba, ma, aa, kb, bb, mb, ab, skip = _args(d, dtype)
+    a = conv_up_folded_plain(y, ka, ba, ma, aa, relu=relu)
+    x = a if skip is None else torch.cat([a, skip], dim=-1)
+    return fused_conv3x3_plain(x, kb, bb, mb, ab,
+                               relu=relu).float().numpy()
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -72,6 +89,8 @@ def test_matches_pallas_kernel_f32(shape):
     got = _torch(d, relu, torch.float32)
     assert got.shape == (1, 2 * hh, 2 * wh, f)
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(_folded(d, relu, torch.float32), want,
+                               rtol=F32_TOL, atol=F32_TOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -82,9 +101,79 @@ def test_matches_pallas_kernel_bf16(shape):
     hh, wh, c, cs, f, relu = shape
     d = _stage(hh * 31 + c, hh, wh, c, cs, f)
     want = _jax(d, relu, jnp.bfloat16)
-    got = _torch(d, relu, torch.bfloat16)
-    err = np.abs(got - want).max()
-    assert err <= BF16_REL * max(1.0, np.abs(want).max()), err
+    for got in (_torch(d, relu, torch.bfloat16),
+                _folded(d, relu, torch.bfloat16)):
+        err = np.abs(got - want).max()
+        assert err <= BF16_REL * max(1.0, np.abs(want).max()), err
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(7, 9, 6, 5, 10, True)])
+def test_folded_conv_a_matches_unfolded_f32(shape):
+    """convA on the four folded 2x2 parity kernels equals the 3x3 conv over
+    the upsampled y in f32 (only the summation order differs), N = 3 and
+    odd Hh, Wh included: every SAME border of every parity class."""
+    from digipathai_tpu_torch.ops.conv_fused import fused_conv3x3_plain
+    from digipathai_tpu_torch.ops.stage_fused import (conv_up_folded_plain,
+                                                      upsample2x)
+
+    hh, wh, c, cs, f, relu = shape
+    d = _stage(hh + 7 * c, hh, wh, c, cs, f, n=3)
+    y, ka = torch.from_numpy(d["y"]), torch.from_numpy(d["ka"])
+    vec = [torch.from_numpy(d[k]) for k in ("ba", "ma", "aa")]
+    want = fused_conv3x3_plain(upsample2x(y), ka, *vec, relu=relu)
+    got = conv_up_folded_plain(y, ka, *vec, relu=relu)
+    assert got.shape == (3, 2 * hh, 2 * wh, f)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_fold_upsample_kernel_sums_rows_then_columns():
+    from digipathai_tpu_torch.ops.stage_fused import fold_upsample_kernel
+
+    k = torch.arange(9.0).reshape(3, 3, 1, 1)
+    kf = fold_upsample_kernel(k)[..., 0, 0]
+    # rows [k0, k1 + k2] / [k0 + k1, k2], then the columns alike
+    np.testing.assert_array_equal(kf[0].numpy(), [[0, 3], [9, 24]])
+    np.testing.assert_array_equal(kf[3].numpy(), [[8, 7], [13, 8]])
+    assert kf.sum(dim=(1, 2)).tolist() == [36.0] * 4
+
+
+def test_prepared_operands_run_the_plain_path_on_their_raw_params():
+    """On a CPU tensor the wrappers take prepared operands (as the model
+    passes them) and run the plain version on their raw parameters, as the
+    plain versions do when chip_smoke.py swaps prepared operands in; operands
+    prepared for another device or dtype are refused."""
+    from digipathai_tpu_torch.ops.conv_fused import (fused_conv3x3,
+                                                      fused_conv3x3_plain,
+                                                      prepare)
+    from digipathai_tpu_torch.ops.stage_fused import (fused_up_stage,
+                                                      fused_up_stage_plain,
+                                                      prepare_stage)
+
+    d = _stage(5, 4, 6, 8, 8, 16)
+    a = _args(d, torch.float32)
+    opa, opb = prepare_stage(*a[1:9], dtype=torch.float32, device="cpu")
+    want = fused_up_stage_plain(*a, relu=True)
+    for fn in (fused_up_stage_plain, fused_up_stage):
+        got = fn(a[0], opa, None, None, None, opb, None, None, None, a[9],
+                 relu=True)
+        assert torch.equal(got, want)
+    x, k = a[0], a[1]
+    ops = prepare(k, *a[2:5], pre_mul=a[3][:8], pre_add=a[4][:8],
+                  dtype=torch.float32, device="cpu")
+    want = fused_conv3x3_plain(x, k, *a[2:5], pre_mul=a[3][:8],
+                               pre_add=a[4][:8])
+    assert torch.equal(fused_conv3x3(x, ops), want)
+    with pytest.raises(ValueError, match="prepared"):
+        fused_conv3x3(x.bfloat16(), ops)
+    meta = prepare(k, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="prepared"):
+        fused_conv3x3(x, meta)
+    meta_a, meta_b = prepare_stage(*a[1:9], dtype=torch.float32,
+                                   device="meta")
+    with pytest.raises(ValueError, match="prepared"):
+        fused_up_stage(a[0], meta_a, None, None, None, meta_b, None, None,
+                       None, a[9])
 
 
 def test_batch_matches_single_images():
@@ -164,14 +253,18 @@ def _randomize(variables, seed):
 @pytest.fixture(scope="module")
 def dense_fused():
     """One randomized flax tree, one 64^2 input and ONE JAX apply of
-    ``build_model("dense", fused_stages=5)`` (Pallas in interpret mode)."""
+    ``build_model("dense", fused_stages=5)`` (Pallas in interpret mode),
+    jitted: the same output as the eager apply in well under half its
+    time."""
     from digipathai_tpu.models.registry import build_model
 
+    from tests.torch_parity import dense_variables
+
     b = build_model("dense", dtype=jnp.float32, fused_stages=5)
-    v = _randomize(b.init(64), 0)
+    v = _randomize(dense_variables(64, 0, fused_stages=5), 0)
     x = np.random.default_rng(1).uniform(-1, 1, (1, 64, 64, 3)).astype(
         np.float32)
-    return v, x, np.asarray(b.apply(v, jnp.asarray(x)))
+    return v, x, np.asarray(jax.jit(b.apply)(v, jnp.asarray(x)))
 
 
 def _torch_dense(v, fused_stages):
