@@ -19,8 +19,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              at the five decoder stages of a 4352^2 tile forward in bf16
              (kernel-only, wrapper, plain, bound, plans) and two ragged
              stages in bf16 and f32; bilateral_message at the CRF's 1024^2
-             and 1024x512 grids, ragged, small, sentinel-padded and L=3
-             cases;
+             and 1024x512 grids and do_crf's 256^2 r=20 grid (kernel-only
+             and wrapper times, plain, bound, plan), then ragged, tiny,
+             r=0, sentinel-padded, L=3, L=5 and large-radius checks;
 4. model   - a full DenseNet121-U-Net forward, batch 32 at 256^2 in bf16,
              through the kernel and through the plain version, and one
              torch.profiler pass over it (device busy share, the conv
@@ -35,8 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
              conv launches per batch in patch mode, 58 conv and 5 stage
              launches per supertile forward in tile mode and, with the CRF,
-             n_iters bilateral launches per tissue supertile; then the
-             oracle model against the slide's known lesion (patch mode
+             n_iters bilateral launches per tissue supertile, and one
+             torch.profiler pass over the CRF's work on one supertile
+             (bilateral, blurs, copies, other kernels, host steps); then
+             the oracle model against the slide's known lesion (patch mode
              without and with the CRF, and tile mode); then the oracle CRF
              run on the card against the CPU;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
@@ -95,11 +98,26 @@ BIL_CASES = [  # (name, H, W, L, r, sigma_xy, sigma_rgb, sentinel)
     # the engine's grids: 4096^2 and 4096x2048 buckets downsampled 4x
     ("crf_4096", 1024, 1024, 2, 10, 12.5, 20.0, False),
     ("crf_4096x2048", 1024, 512, 2, 10, 12.5, 20.0, False),
+    # do_crf's colour term: a 1024^2 label map downsampled 4x, r=20, L=3
+    ("do_crf", 256, 256, 3, 20, 20.0, 13.0, False),
     ("ragged", 70, 90, 2, 10, 12.5, 20.0, False),
+    ("ragged_tall", 333, 130, 2, 10, 12.5, 20.0, False),
     ("small", 48, 48, 2, 3, 12.5, 20.0, False),
+    ("r5", 320, 480, 2, 5, 12.5, 20.0, False),
+    ("r20", 256, 600, 2, 20, 12.5, 20.0, False),
+    ("r0", 40, 50, 2, 0, 12.5, 20.0, False),
+    ("below_window", 5, 7, 2, 10, 12.5, 20.0, False),
+    ("one_row", 1, 300, 2, 10, 12.5, 20.0, False),
+    ("one_column", 300, 1, 2, 10, 12.5, 20.0, False),
     ("sentinel", 256, 200, 2, 10, 12.5, 20.0, True),
     ("labels3", 100, 120, 3, 10, 12.5, 20.0, False),
+    ("labels5", 60, 70, 5, 10, 12.5, 20.0, False),
+    # radii the kernel takes at run time, at K = 2 and at K = 1
+    ("r30", 64, 80, 1, 30, 12.5, 20.0, False),
+    ("r50", 40, 120, 1, 50, 12.5, 20.0, False),
 ]
+# rows whose plain version is timed too (the others are only checked)
+BIL_TIMED = ("crf_4096", "crf_4096x2048", "do_crf")
 # the oracle CRF run, card vs CPU, f32: the bilateral kernel and the plain
 # message differ by ~1e-6 per iteration, cuDNN and the CPU conv likewise
 CRF_DEVICE_BOUND = 1e-4
@@ -359,10 +377,31 @@ def kernels_conv(state):
             err, lim = check(f"fused_conv3x3 {name} {dtype}", got, ref, rel)
             t_w = time_ms(lambda: cf.fused_conv3x3(x, k, **kw))
             t_p = time_ms(lambda: cf.fused_conv3x3_plain(x, k, **kw))
+            plan = cf.plan_conv(n, h, w, c, 0, f, dtype)
+            timed = ""
+            if name == "ragged":
+                # kernel-only and cuDNN alone, as the main-path rows
+                kw2 = dict(kw)
+                relu = kw2.pop("relu", True)
+                ops = cf.prepare(k, **kw2, dtype=dtype, device=x.device)
+                out = torch.empty_like(got)
+                t_k = graph_ms(lambda: cf.launch(x, ops, relu=relu, out=out,
+                                                 plan=plan))
+                xc = x.permute(0, 3, 1, 2)
+                kc = k.to(dtype).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                t_l = graph_ms(lambda: F.conv2d(xc, kc, padding=1))
+                b_ms, b_by = bound(
+                    2.0 * n * h * w * 9 * c * f,
+                    dtype.itemsize * (x.numel() + k.numel() + n * h * w * f),
+                    "bf16" if dtype == torch.bfloat16 else "f32")
+                timed = (f"kernel {t_k:.4f} ms, cuDNN alone {t_l:.4f} ms, "
+                         f"bound {b_ms:.6f} ms ({b_by}), ")
+                del ops, out, xc, kc
             log(f"[kernels] fused_conv3x3 {name} ({n},{h},{w},{c})->{f} "
                 f"{str(dtype).split('.')[-1]}: max|d|={err:.3e} (bound "
-                f"{lim:.3e}); wrapper {t_w:.3f} ms, plain {t_p:.3f} ms; "
-                f"{plan_text(cf.plan_conv(n, h, w, c, 0, f, dtype))}")
+                f"{lim:.3e}); {timed}wrapper {t_w:.3f} ms, plain {t_p:.3f} "
+                f"ms; {plan_text(plan)} | {state['smi']}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
             del x, k, kw, got, ref
@@ -499,12 +538,16 @@ def bilateral_work(h, w, n_labels, r):
 
 
 def kernels_bilateral(state):
+    """bilateral_message at every BIL_CASES shape against its plain version;
+    kernel-only (CUDA graph) and wrapper times, the plan, and the bound."""
     import torch
 
-    from digipathai_tpu_torch.ops.bilateral import bilateral_message
+    from digipathai_tpu_torch.ops.bilateral import (bilateral_message,
+                                                    plan_bilateral)
     from digipathai_tpu_torch.ops.crf import _PAD_COLOR, _bilateral_message
 
-    worst, ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0
+    worst = 0.0
+    tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     bound_by = {}
     for name, h, w, n_labels, r, sxy, srgb, sentinel in BIL_CASES:
         g = torch.Generator().manual_seed(h * w + r)
@@ -517,36 +560,50 @@ def kernels_bilateral(state):
             img[:, w * 3 // 4:] = _PAD_COLOR / 16
             q[h * 3 // 4:] = 0.0
         img, q = img.cuda(), q.cuda()
-        got = bilateral_message(q, img, sxy, srgb, r)
+
+        def call():
+            return bilateral_message(q, img, sxy, srgb, r)
+
+        got = call()
         ref = _bilateral_message(q, img, sxy, srgb, r)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         if not torch.isfinite(got).all() or not err <= BIL_BOUND:
             raise AssertionError(f"bilateral_message {name}: max|d| {err} "
                                  f"(bound {BIL_BOUND}) or non-finite")
-        t_k = time_ms(lambda: bilateral_message(q, img, sxy, srgb, r))
+        worst = max(worst, err)
+        plan = plan_bilateral(h, w, n_labels, r)
+        what = (f"[kernels] bilateral {name} ({h},{w},{n_labels}) r={r}: "
+                f"max|d|={err:.3e} (bound {BIL_BOUND}); plan K={plan.k} "
+                f"warps={plan.warps} unrolled r={plan.spec} smem "
+                f"{plan.smem} B, {plan.blocks} blocks")
+        if name not in BIL_TIMED:
+            log(what)
+            del img, q, got, ref
+            continue
+        t_k = graph_ms(call)
+        t_w = time_ms(call)
         t_p = time_ms(lambda: _bilateral_message(q, img, sxy, srgb, r),
                       reps=3, warmup=1)
         flop, nbytes = bilateral_work(h, w, n_labels, r)
         b_ms, b_by = bound(flop, nbytes, "f32")
-        log(f"[kernels] bilateral {name} ({h},{w},{n_labels}) r={r}: "
-            f"max|d|={err:.3e} (bound {BIL_BOUND}) kernel {t_k:.3f} ms plain "
-            f"{t_p:.3f} ms bound {b_ms:.4f} ms ({b_by}, {flop / 1e9:.2f} "
-            f"GFLOP) | {state['smi']}")
-        worst = max(worst, err)
+        log(f"{what}; kernel {t_k:.4f} ms, wrapper {t_w:.4f} ms, plain "
+            f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flop / 1e9:.2f} "
+            f"GFLOP; kernel/bound {t_k / b_ms:.2f}) | {state['smi']}")
         if name.startswith("crf_"):
-            ms += t_k
-            plain_ms += t_p
-            bound_ms += b_ms
+            for key, v in (("ms", t_k), ("wrapper_ms", t_w),
+                           ("plain_ms", t_p), ("bound_ms", b_ms)):
+                tot[key] += v
             bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
         del img, q, got, ref
     torch.cuda.empty_cache()
     # no single PyTorch call computes this message: library_ms is null
-    state["bilateral"] = {"max_abs_err": worst, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+    state["bilateral"] = {"max_abs_err": worst, **tot,
                           "bound_by": max(bound_by, key=bound_by.get),
                           "library_ms": None,
-                          "ms_covers": "one call at each crf_ shape, per "
+                          "ms_covers": "one launch at each crf_ shape "
+                                       "summed; ms kernel-only (20 launches "
+                                       "in one CUDA graph), wrapper_ms one "
                                        "call with its host work; launches: "
                                        "the dense patch run with crf=True"}
 
@@ -622,6 +679,17 @@ def reload_check(m, x, before):
     del fresh, got, want
 
 
+def busy_span(events):
+    """(busy, window) in us of profiler device events: the union of their
+    intervals, and the span from the first start to the last end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy, end - spans[0][0]
+
+
 def profile_forward(state, m, x, reps=3):
     """One torch.profiler pass over ``reps`` batch-32 forwards: the device's
     busy share (the union of kernel intervals over the span from the first
@@ -646,12 +714,7 @@ def profile_forward(state, m, x, reps=3):
         log("[model] profiler: no device time recorded (CUDA events above "
             "stand)")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    window = end - spans[0][0]
+    busy, window = busy_span(kernels)
     ours = sum(e.time_range.end - e.time_range.start for e in kernels
                if any(k in e.name for k in ("conv_wgmma", "splitk_reduce",
                                              "conv_fma")))
@@ -804,6 +867,8 @@ def phase_engine(state):
             f"supertiles, launches {got}; wall {wall:.2f} s = "
             f"{plan.total_patches / wall:.1f} patches/s; stages "
             f"{status['timings']} | {state['smi']}")
+    profile_crf(state, path, os.path.join(d, "dense-crf0-probs.tiff"),
+                supertile)
     log(f"[engine] CRF post-pass: {want_bil // n_iters} tissue supertiles, "
         f"{state['launches']['bilateral_message']} bilateral launches; "
         f"e2e {walls[False]:.2f} s without crf, {walls[True]:.2f} s with "
@@ -879,6 +944,106 @@ def phase_engine(state):
         f"{CRF_DEVICE_BOUND}), {flips} mask flips away from the threshold")
     if not err <= CRF_DEVICE_BOUND or flips:
         raise AssertionError(f"CRF card vs CPU: max|dp| {err}, {flips} flips")
+
+
+def profile_crf(state, slide_path, probs_path, supertile):
+    """One torch.profiler pass over the CRF post-pass's work on one tissue
+    supertile, as ``refine_slide_crf`` and the engine's write-back do it:
+    read the region, ``refine_tile`` (upload, ten mean-field iterations,
+    download), stage the refined block to an .npz and write it into a
+    memmap.  Splits the device time into the bilateral kernel, the blurs
+    (the kernels under ``_blur2d``, traced as a profiler range), the copies
+    and all other kernels, and the wall into its host steps.  It observes
+    only: the engine's code is called as it is."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import digipathai_tpu_torch as dpt
+    from digipathai_tpu_torch.ops import crf
+
+    st = supertile
+    with dpt.Slide(probs_path) as s:
+        probs = np.asarray(s.read_region((0, 0), 0, (st, st)))[..., 0]
+    probs = probs.astype(np.float32) / 255.0
+    mm = np.lib.format.open_memmap(os.path.join(state["tmp"], "crf.npy"),
+                                   mode="w+", dtype=np.float32,
+                                   shape=(st, st))
+    blur = crf._blur2d
+
+    def traced_blur(*a, **k):
+        with record_function("dpai_blur2d"):
+            return blur(*a, **k)
+
+    def read():
+        with dpt.Slide(slide_path) as s:
+            return np.asarray(s.read_region((0, 0), 0, (st, st)))
+
+    crf.refine_tile(read(), probs, st)  # warm: cuDNN's choice, lazy loads
+    torch.cuda.synchronize()
+    with mock.patch.object(crf, "_blur2d", traced_blur), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = [time.perf_counter()]  # the profiler's start-up is outside
+        img = read()
+        t.append(time.perf_counter())
+        refined = crf.refine_tile(img, probs, st)
+        t.append(time.perf_counter())
+        tmp = os.path.join(state["tmp"], "crftile.npz")
+        np.savez(tmp, box=np.asarray((0, st, 0, st)), block=refined)
+        t.append(time.perf_counter())
+        mm[:, :] = refined
+        mm.flush()
+        t.append(time.perf_counter())
+    events = prof.events()
+    # device events: kernels and copies (not the range's own span on the
+    # device timeline)
+    dev = [e for e in events
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and e.time_range.end > e.time_range.start
+           and e.name != "dpai_blur2d"]
+
+    if not dev:
+        raise AssertionError("profiler recorded no device time in the CRF")
+
+    def kernels_under(e):
+        """Device time (us) of the kernels launched inside CPU event e."""
+        return (sum(k.duration for k in e.kernels if k.name != "dpai_blur2d")
+                + sum(kernels_under(c) for c in e.cpu_children))
+
+    def summed(pred):
+        return sum(e.time_range.end - e.time_range.start
+                   for e in dev if pred(e.name)) / 1e6
+
+    def is_copy(name):
+        return "memcpy" in name.lower() or "memset" in name.lower()
+
+    bil_s = summed(lambda n: "bilateral_kernel" in n)
+    copy_s = summed(is_copy)
+    all_s = summed(lambda n: True)
+    blur_s = sum(kernels_under(e) for e in events
+                 if e.name == "dpai_blur2d"
+                 and e.device_type == DeviceType.CPU) / 1e6
+    busy = busy_span(dev)[0] / 1e6
+    names = {}
+    for e in dev:
+        names[e.name] = names.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e6
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    wall = t[-1] - t[0]
+    log(f"[engine] CRF split, one {st}^2 supertile (profiled): wall "
+        f"{wall:.4f} s = read {t[1] - t[0]:.4f} s + refine_tile "
+        f"{t[2] - t[1]:.4f} s + npz staging {t[3] - t[2]:.4f} s + memmap "
+        f"write-back {t[4] - t[3]:.4f} s; device: bilateral "
+        f"{bil_s:.4f} s ({sum(1 for e in dev if 'bilateral_kernel' in e.name)}"
+        f" launches), blurs {blur_s:.4f} s, copies {copy_s:.4f} s, other "
+        f"kernels {all_s - bil_s - blur_s - copy_s:.4f} s; device busy "
+        f"{busy:.4f} s, host-only {wall - busy:.4f} s "
+        f"(of it inside refine_tile {t[2] - t[1] - busy:.4f} s) "
+        f"| {state['smi']}")
+    log("[engine] CRF split, top device events: " + "; ".join(
+        f"{n[:60]} {v * 1e3:.2f} ms" for n, v in top))
+    del mm
 
 
 def phase_server(state):

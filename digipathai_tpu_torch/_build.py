@@ -32,7 +32,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: ctypes signature of each library's entry points: name -> (argtypes, restype)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_PLAN = ctypes.POINTER(ctypes.c_int)  # a host int[6]: ConvPlan.as_c
+_PLAN = ctypes.POINTER(ctypes.c_int)  # a host int[]: a plan's as_c()
 SIGNATURES = {
     "conv_fused": {
         "dpai_fused_conv3x3": (
@@ -50,9 +50,10 @@ SIGNATURES = {
     },
     "bilateral": {
         "dpai_bilateral_message": (
-            # q, img, out, h, w, L, l0, nl, r, inv2_xy, inv2_c, stream
+            # q, img, out, h, w, L, l0, nl, r, a, cc, plan (int[3]:
+            # BilateralPlan.as_c), stream
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-             ctypes.c_float, _P], _I),
+             ctypes.c_float, _PLAN, _P], _I),
     },
 }
 

@@ -36,7 +36,7 @@ def stitch_batch(acc: torch.Tensor, mean_p: torch.Tensor, var_p: torch.Tensor,
 
 
 def make_accumulator(supertile: int, patch: int, planes: int = 3,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     return torch.zeros((planes, supertile + patch, supertile + patch),
                        dtype=torch.float32, device=device)
 

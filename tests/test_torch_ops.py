@@ -143,7 +143,7 @@ def test_stitch_batch(planes):
     offs = rng.integers(0, S, (B, 2)).astype(np.int32)
     offs[1] = offs[0]  # overlapping patches add up
     valid = np.array([True, True, False, True, True])
-    acc = make_accumulator(S, P, planes=planes)
+    acc = make_accumulator(S, P, planes=planes, device="cpu")
     got = stitch_batch(acc, torch.from_numpy(mean), torch.from_numpy(var),
                        offs, valid, patch=P)
     assert got is acc  # in place
