@@ -11,26 +11,35 @@ Phases, in order; any failure raises and the script exits non-zero:
              and spills;
 3. kernels - each kernel against its plain PyTorch version at the main
              paths' shapes, with timings: fused_conv3x3 at every distinct
-             conv shape of a batch-32 forward and of a 4352^2 tile forward
-             in bf16 (kernel-only time from back-to-back launches in one
-             CUDA graph with operands prepared beforehand, the wrapper's
-             time, the plain version, cuDNN's conv alone, the bound, the
-             plan), then f32 (TF32 off) and ragged checks; fused_up_stage
-             at the five decoder stages of a 4352^2 tile forward in bf16
-             (kernel-only, wrapper, plain, bound, plans) and two ragged
-             stages in bf16 and f32; bilateral_message at the CRF's 1024^2
-             and 1024x512 grids and do_crf's 256^2 r=20 grid (kernel-only
-             and wrapper times, plain, bound, plan), then ragged, tiny,
-             r=0, sentinel-padded, L=3, L=5 and large-radius checks;
+             conv shape of the dense and Inception batch-32 forwards and
+             of the dense tile forward in bf16 (kernel-only time from
+             back-to-back launches in one CUDA graph with operands prepared
+             beforehand, the wrapper's time, the plain version, cuDNN's
+             conv alone, the bound, the plan; launch-weighted totals over
+             the dense forwards and over dense and Inception), then f32
+             (TF32 off) and ragged checks; fused_up_stage at the decoder
+             stages of the dense and Inception 4352^2 tile forwards in
+             bf16 (kernel-only, wrapper, plain, bound, plans) and two
+             ragged stages in bf16 and f32; bilateral_message at the CRF's
+             1024^2 and 1024x512 grids and do_crf's 256^2 r=20 grid
+             (kernel-only and wrapper times, plain, bound, plan), then
+             ragged, tiny, r=0, sentinel-padded, L=3, L=5 and large-radius
+             checks;
 4. model   - a full DenseNet121-U-Net forward, batch 32 at 256^2 in bf16,
              through the kernel and through the plain version, and one
              torch.profiler pass over it (device busy share, the conv
              kernel's summed time); weights loaded into that model after
-             its forwards give a fresh model's output bit for bit; then
-             one tile-mode forward at
-             (1, 4352, 4352, 3) with fused_stages=5 (58 conv and 5 stage
-             launches), through fused_up_stage and through its plain
-             version;
+             its forwards give a fresh model's output bit for bit; one
+             tile-mode forward at (1, 4352, 4352, 3) with fused_stages=5
+             (58 conv and 5 stage launches), through fused_up_stage and
+             through its plain version; Inception and DeepLab in f32 on
+             the card against the CPU on a small input; the
+             Inception-ResNet-v2-U-Net at batch 32 (10 conv launches) and
+             at 4352^2 with fused_stages=5 (5 stage launches, no conv),
+             through the kernels and their plain versions; DeepLabv3+ at
+             batch 32 and at 4352^2 with aspp_pool_window=256; one
+             torch.profiler pass over the batch-32 ensemble forward (device
+             busy share, each model's share of the device time);
 5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
              mode and in tile mode with fused_stages=5, each without and
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
@@ -39,13 +48,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              n_iters bilateral launches per tissue supertile, and one
              torch.profiler pass over the CRF's work on one supertile
              (bilateral, blurs, copies, other kernels, host steps); then
-             the oracle model against the slide's known lesion (patch mode
+             the 3-model ensemble (quick=False) in patch mode (68 + 10 conv
+             launches per batch) and in tile mode with fused_stages=5
+             without and with crf=True (58 conv and 5 + 5 stage launches
+             per supertile), each with its wall and stages; then the
+             oracle model against the slide's known lesion (patch mode
              without and with the CRF, and tile mode); then the oracle CRF
              run on the card against the CPU;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
              crf=1, then with inference_mode=tile&crf=1 on an engine with
-             fused_stages=5, each polled to Done, then the mask's .dzi and
-             one mask tile.
+             fused_stages=5, then with quick=0 (the ensemble), each polled
+             to Done, then the mask's .dzi and one mask tile.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Prints a JSON line of per-kernel results, the card's name
@@ -70,6 +83,8 @@ SLIDE = (6144, 4096)  # (X, Y): two 4096 supertiles, dozens of batches
 # bf16 forward, kernel vs plain: per-conv differences of about one bf16
 # rounding, carried through 121 layers.  Measured on an H100: max|dp| 4.1e-3.
 MODEL_BOUND = 0.02
+# f32 forward, card (TF32 off) vs CPU: the bound of the CPU parity tests
+F32_MODEL_BOUND = 1e-4
 # bf16 bound of kernel vs plain: the plain version rounds the conv output to
 # bf16 before its affine (2^-8 relative) and rounds again after it; the
 # kernel rounds once.  Two roundings of 2^-8 of the output scale, doubled.
@@ -283,20 +298,45 @@ def plan_text(plan) -> str:
 
 
 def main_path_convs():
-    """(name, (n, h, w, c, f, pre), launches per forward) of every distinct
-    conv of a batch-32 forward and of a tile forward."""
-    from digipathai_tpu_torch.models.densenet_unet import kernel_calls
+    """(name, (n, h, w, c, f, pre), {model: launches per forward}) of every
+    distinct conv of the dense and Inception batch-32 forwards and of their
+    tile forwards (with fused_stages=5, Inception's tile forward launches
+    no conv)."""
+    from digipathai_tpu_torch.models import densenet_unet, inception_unet
 
-    rows = []
-    for tag, calls in (("patch", kernel_calls(BATCH, PATCH)),
-                       ("tile", kernel_calls(1, TILE_SIDE, 5))):
-        for kind, shape, count in calls:
-            if kind == "conv":
-                n, h, w, c, f, pre = shape
-                what = "dense" if pre else "decoder"
-                rows.append((f"{tag} {what} ({n},{h},{w},{c})->{f}", shape,
-                             count))
-    return rows
+    rows = {}
+    for model, mod in (("dense", densenet_unet),
+                       ("inception", inception_unet)):
+        for tag, calls in (("patch", mod.kernel_calls(BATCH, PATCH)),
+                           ("tile", mod.kernel_calls(1, TILE_SIDE, 5))):
+            for kind, shape, count in calls:
+                if kind == "conv":
+                    n, h, w, c, f, pre = shape
+                    what = "dense" if pre else "decoder"
+                    name = f"{tag} {what} ({n},{h},{w},{c})->{f}"
+                    rows.setdefault((name, shape), {})[model] = count
+    return [(name, shape, counts) for (name, shape), counts in rows.items()]
+
+
+def main_path_stages():
+    """(name, (n, hh, wh, c, cs, f), {model: launches per forward}) of every
+    distinct stage of the dense and Inception tile forwards with
+    fused_stages=5."""
+    from digipathai_tpu_torch.models import densenet_unet, inception_unet
+
+    rows = {}
+    for model, mod in (("dense", densenet_unet),
+                       ("inception", inception_unet)):
+        stages = [s for k, s, _ in mod.kernel_calls(1, TILE_SIDE, 5)
+                  if k == "stage"]
+        for i, shape in enumerate(stages):
+            key = rows.setdefault(shape, [f"{model} stage{i + 1}", {}])
+            key[1][model] = 1
+    return [(name, shape, counts) for shape, (name, counts) in rows.items()]
+
+
+def launches_text(counts) -> str:
+    return ", ".join(f"{m} x{c}" for m, c in counts.items())
 
 
 def phase_kernels(state):
@@ -329,8 +369,10 @@ def kernels_conv(state):
 
     tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": 0.0}
+    tot_dense = dict(tot)
     worst, bound_by = 0.0, {}
-    for name, (n, h, w, c, f, pre), count in main_path_convs():
+    for name, (n, h, w, c, f, pre), counts in main_path_convs():
+        count = sum(counts.values())
         x, k, kw = conv_inputs(n, h, w, c, f, pre, torch.bfloat16, seed=c + f)
         relu = kw.pop("relu", True)
         ops = cf.prepare(k, **kw, dtype=x.dtype, device=x.device)
@@ -354,7 +396,8 @@ def kernels_conv(state):
         flop = 2.0 * n * h * w * 9 * c * f
         b_ms, b_by = bound(flop, 2 * (x.numel() + k.numel() + n * h * w * f),
                            "bf16")
-        log(f"[kernels] fused_conv3x3 {name} bf16 x{count}/forward: "
+        log(f"[kernels] fused_conv3x3 {name} bf16 "
+            f"({launches_text(counts)} per forward): "
             f"max|d|={err:.3e} (bound {lim:.3e}); kernel {t_k:.4f} ms "
             f"({flop / t_k / 1e9:.1f} TFLOP/s), wrapper {t_w:.4f} ms, plain "
             f"{t_p:.4f} ms, cuDNN alone {t_l:.4f} ms (kernel/cuDNN "
@@ -363,6 +406,7 @@ def kernels_conv(state):
         for key, v in (("ms", t_k), ("wrapper_ms", t_w), ("plain_ms", t_p),
                        ("bound_ms", b_ms), ("library_ms", t_l)):
             tot[key] += count * v
+            tot_dense[key] += counts.get("dense", 0) * v
         bound_by[b_by] = bound_by.get(b_by, 0.0) + count * b_ms
         del x, k, kw, ops, got, ref, out, part, xc, kc
         torch.cuda.empty_cache()
@@ -406,20 +450,25 @@ def kernels_conv(state):
                 worst = max(worst, err)
             del x, k, kw, got, ref
     torch.cuda.empty_cache()
-    log(f"[kernels] fused_conv3x3 per batch-32 forward + tile forward "
-        f"(launch-weighted): kernel {tot['ms']:.3f} ms, wrapper "
-        f"{tot['wrapper_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
-        f"alone {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-        f"| {state['smi']}")
+    for what, t in (("dense batch-32 forward + tile forward (68 + 58 "
+                     "launches)", tot_dense),
+                    ("dense and Inception batch-32 and tile forwards (68 + "
+                     "58 + 10 + 0 launches)", tot)):
+        log(f"[kernels] fused_conv3x3 over the {what}, launch-weighted: "
+            f"kernel {t['ms']:.3f} ms, wrapper {t['wrapper_ms']:.3f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, cuDNN alone "
+            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"| {state['smi']}")
     state["conv"] = {"max_abs_err": worst, **tot,
                      "bound_by": max(bound_by, key=bound_by.get),
-                     "ms_covers": "the 68 launches of one batch-32 forward "
-                                  "and the 58 of one tile forward, each "
-                                  "shape's time times its launches; ms "
-                                  "kernel-only (CUDA graph), wrapper_ms "
-                                  "per call with operands prepared "
-                                  "beforehand; launches: the dense patch "
-                                  "run"}
+                     "ms_covers": "the 68 launches of one dense batch-32 "
+                                  "forward, the 58 of one dense tile "
+                                  "forward and the 10 of one Inception "
+                                  "batch-32 forward, each shape's time "
+                                  "times its launches; ms kernel-only (CUDA "
+                                  "graph), wrapper_ms per call with "
+                                  "operands prepared beforehand; launches: "
+                                  "the ensemble's patch run"}
 
 
 def stage_inputs(n, hh, wh, c, cs, f, dtype, seed):
@@ -462,17 +511,16 @@ def kernels_stage(state):
     rows in bf16 and f32."""
     import torch
 
-    from digipathai_tpu_torch.models.densenet_unet import kernel_calls
     from digipathai_tpu_torch.ops import stage_fused as sf
 
     tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    tot_dense = dict(tot)
     worst, bound_by = 0.0, {}
-    rows = [(f"stage{i + 1}", *shape, True, torch.bfloat16)
-            for i, (_, shape, _) in enumerate(
-                r for r in kernel_calls(1, TILE_SIDE, 5) if r[0] == "stage")]
-    rows += [(*r, dt) for r in STAGE_RAGGED
+    rows = [(name, *shape, True, torch.bfloat16, counts)
+            for name, shape, counts in main_path_stages()]
+    rows += [(*r, dt, {}) for r in STAGE_RAGGED
              for dt in (torch.bfloat16, torch.float32)]
-    for name, n, hh, wh, c, cs, f, relu, dtype in rows:
+    for name, n, hh, wh, c, cs, f, relu, dtype, counts in rows:
         args = stage_inputs(n, hh, wh, c, cs, f, dtype, seed=c + cs + f)
         y, skip = args[0], args[-1]
         opa, opb = sf.prepare_stage(*args[1:9], dtype=dtype, device=y.device)
@@ -494,7 +542,9 @@ def kernels_stage(state):
         b_ms, b_by = bound(flop, nbytes, "bf16" if dtype == torch.bfloat16
                            else "f32")
         log(f"[kernels] fused_up_stage {name} y ({n},{hh},{wh},{c}) skip "
-            f"Cs={cs} -> F={f} {str(dtype).split('.')[-1]}: max|d|={err:.3e} "
+            f"Cs={cs} -> F={f} {str(dtype).split('.')[-1]} "
+            f"({launches_text(counts) or 'off the main paths'} per tile "
+            f"forward): max|d|={err:.3e} "
             f"(bound {lim:.3e}); kernel {t_k:.3f} ms "
             f"({flop / t_k / 1e9:.1f} TFLOP/s), wrapper {t_w:.3f} ms, plain "
             f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {flop / 1e9:.1f} "
@@ -502,26 +552,33 @@ def kernels_stage(state):
             f"convB {plan_text(plans[1])} | {state['smi']}")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
-        if not name.startswith("ragged"):
-            for key, v in (("ms", t_k), ("wrapper_ms", t_w),
-                           ("plain_ms", t_p), ("bound_ms", b_ms)):
-                tot[key] += v
-            bound_by[b_by] = bound_by.get(b_by, 0.0) + b_ms
+        count = sum(counts.values())
+        for key, v in (("ms", t_k), ("wrapper_ms", t_w),
+                       ("plain_ms", t_p), ("bound_ms", b_ms)):
+            tot[key] += count * v
+            tot_dense[key] += counts.get("dense", 0) * v
+        if count:
+            bound_by[b_by] = bound_by.get(b_by, 0.0) + count * b_ms
         del args, y, skip, opa, opb, got, ref, out, a, part
         torch.cuda.empty_cache()
-    log(f"[kernels] fused_up_stage, five stages of one tile forward: kernel "
-        f"{tot['ms']:.3f} ms, wrapper {tot['wrapper_ms']:.3f} ms, plain "
-        f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-        f"| {state['smi']}")
+    for what, t in (("five stages of one dense tile forward", tot_dense),
+                    ("ten stages of one dense and one Inception tile "
+                     "forward", tot)):
+        log(f"[kernels] fused_up_stage, the {what}: kernel {t['ms']:.3f} "
+            f"ms, wrapper {t['wrapper_ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"| {state['smi']}")
     # no single PyTorch call computes a whole decoder stage: library_ms null
     state["stage"] = {"max_abs_err": worst, **tot,
                       "bound_by": max(bound_by, key=bound_by.get),
                       "library_ms": None,
-                      "ms_covers": "the five launches of one tile forward; "
-                                   "ms kernel-only (CUDA graph), wrapper_ms "
-                                   "per call on the raw parameters (operands "
-                                   "prepared in the call); launches: the "
-                                   "dense tile run"}
+                      "ms_covers": "the five launches of one dense tile "
+                                   "forward and the five of one Inception "
+                                   "tile forward; ms kernel-only (CUDA "
+                                   "graph), wrapper_ms per call on the raw "
+                                   "parameters (operands prepared in the "
+                                   "call); launches: the ensemble's tile "
+                                   "run"}
 
 
 def bilateral_work(h, w, n_labels, r):
@@ -605,7 +662,8 @@ def kernels_bilateral(state):
                                        "summed; ms kernel-only (20 launches "
                                        "in one CUDA graph), wrapper_ms one "
                                        "call with its host work; launches: "
-                                       "the dense patch run with crf=True"}
+                                       "the ensemble's tile run with "
+                                       "crf=True"}
 
 
 def phase_model(state):
@@ -645,9 +703,16 @@ def phase_model(state):
         raise AssertionError(f"model max|dp| {d.max().item()} > {MODEL_BOUND}")
     profile_forward(state, m, x)
     reload_check(m, x, p)
-    del m, u8, x, p, q, d
+    del p, q, d
     torch.cuda.empty_cache()
     tile_forward(state)
+    small_input_check(state)
+    models = {"dense": m,
+              "inception": inception_forwards(state, x),
+              "deeplabv3": deeplab_forwards(state, x)}
+    profile_ensemble(state, models, x)
+    del m, models, u8, x
+    torch.cuda.empty_cache()
 
 
 def reload_check(m, x, before):
@@ -725,6 +790,19 @@ def profile_forward(state, m, x, reps=3):
         f"| {state['smi']}")
 
 
+def tile_input():
+    """A normalized (1, 4352, 4352, 3) supertile with its halo, drawn on
+    the card."""
+    import torch
+
+    from digipathai_tpu_torch.ops.color import normalize_patches
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    u8 = torch.randint(0, 256, (1, TILE_SIDE, TILE_SIDE, 3), generator=g,
+                       device="cuda", dtype=torch.uint8)
+    return normalize_patches(u8)
+
+
 def tile_forward(state):
     """One tile-mode forward: a (1, 4352, 4352, 3) supertile with its halo
     through fused_stages=5, then the same with fused_up_stage patched to
@@ -733,15 +811,11 @@ def tile_forward(state):
 
     from digipathai_tpu_torch.models.registry import build_model
     from digipathai_tpu_torch.ops import stage_fused
-    from digipathai_tpu_torch.ops.color import normalize_patches
 
     m = build_model("dense", dtype=torch.bfloat16, fused_stages=5).init(
         PATCH, seed=0).cuda()
-    g = torch.Generator(device="cuda").manual_seed(2)
-    u8 = torch.randint(0, 256, (1, TILE_SIDE, TILE_SIDE, 3), generator=g,
-                       device="cuda", dtype=torch.uint8)
     with torch.inference_mode():
-        x = normalize_patches(u8)
+        x = tile_input()
         reset_launches()
         p = m(x)[..., 1]
         torch.cuda.synchronize()
@@ -766,8 +840,191 @@ def tile_forward(state):
         f"stage | {state['smi']}")
     if dmax > MODEL_BOUND:
         raise AssertionError(f"tile forward max|dp| {dmax} > {MODEL_BOUND}")
-    del m, u8, x, p, q, d
+    del m, x, p, q, d
     torch.cuda.empty_cache()
+
+
+def small_input_check(state):
+    """The two new models on the card against the CPU, in f32 with TF32 off,
+    on one (2, 64, 64, 3) input and the same weights: Inception through the
+    conv kernel (its scalar f32 path) against the plain version on the CPU,
+    DeepLab (cuDNN) against the CPU's convolutions, and DeepLab's windowed
+    image pooling at 128^2."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(4)
+        for name, side, kw in (("inception", 64, {}),
+                               ("deeplabv3", 64, {}),
+                               ("deeplabv3", 128, {"aspp_pool_window": 64})):
+            cpu = build_model(name, dtype=torch.float32, **kw).init(
+                PATCH, seed=3)
+            card = build_model(name, dtype=torch.float32,
+                               **kw).module.cuda().eval()
+            card.load_state_dict(cpu.state_dict())
+            x = torch.rand(2, side, side, 3, generator=g) * 2 - 1
+            with torch.inference_mode():
+                want = cpu(x)
+                got = card(x.cuda()).cpu()
+            err = (got - want).abs().max().item()
+            log(f"[model] {name} {kw or ''} f32 (2,{side},{side},3), card vs "
+                f"CPU: max|dp|={err:.3e} (bound {F32_MODEL_BOUND})")
+            if not err <= F32_MODEL_BOUND or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} card vs CPU max|dp| {err}")
+            del cpu, card
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def inception_forwards(state, x):
+    """The Inception U-Net at batch 32 x 256^2 (10 conv launches) and at
+    (1, 4352, 4352, 3) with fused_stages=5 (5 stage launches, no conv),
+    each through the kernels and through their plain versions; returns the
+    model."""
+    import torch
+
+    from digipathai_tpu_torch.models.inception_unet import kernel_calls
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.ops import conv_fused, stage_fused
+
+    m = build_model("inception", dtype=torch.bfloat16).init(
+        PATCH, seed=0).cuda()
+    for tag, fused, inp, convs, stages in (
+            ("batch-32", 0, lambda: x, 10, 0), ("tile", 5, tile_input, 0, 5)):
+        xi = inp()
+        m.fused_stages = fused
+        calls = kernel_calls(xi.shape[0], xi.shape[1], fused)
+        want = {"fused_conv3x3": convs, "fused_up_stage": stages,
+                "bilateral_message": 0}
+        if [sum(c for k, _, c in calls if k == kind)
+                for kind in ("conv", "stage")] != [convs, stages]:
+            raise AssertionError(f"kernel_calls lists {calls}")
+        with torch.inference_mode():
+            reset_launches()
+            p = m(xi)[..., 1]
+            torch.cuda.synchronize()
+            n = read_launches()
+            with mock.patch.object(conv_fused, "fused_conv3x3",
+                                   conv_fused.fused_conv3x3_plain), \
+                    mock.patch.object(stage_fused, "fused_up_stage",
+                                      stage_fused.fused_up_stage_plain):
+                q = m(xi)[..., 1]
+                t_p = time_ms(lambda: m(xi), reps=3, warmup=1)
+            t_k = time_ms(lambda: m(xi), reps=3, warmup=1)
+            d = (p - q).abs()
+            dmax, dmean = d.max().item(), d.mean().item()
+            finite = bool(torch.isfinite(p).all())
+        if n != want:
+            raise AssertionError(f"Inception {tag} forward launched {n}, "
+                                 f"want {want}")
+        if tuple(p.shape) != tuple(xi.shape[:3]) or not finite:
+            raise AssertionError(f"bad Inception output {tuple(p.shape)}")
+        log(f"[model] Inception-ResNet-v2-U-Net bf16 {tag} "
+            f"{tuple(xi.shape)} fused_stages={fused}: launches {n}; kernels "
+            f"vs plain max|dp|={dmax:.4e} mean|dp|={dmean:.4e} (bound "
+            f"{MODEL_BOUND}); forward {t_k:.2f} ms through the kernels, "
+            f"{t_p:.2f} ms plain | {state['smi']}")
+        if dmax > MODEL_BOUND:
+            raise AssertionError(f"Inception {tag} max|dp| {dmax}")
+        del xi, p, q, d
+        torch.cuda.empty_cache()
+    m.fused_stages = 0
+    return m
+
+
+def deeplab_forwards(state, x):
+    """DeepLabv3+ at batch 32 x 256^2 and at (1, 4352, 4352, 3) with
+    aspp_pool_window=256 (tile mode's patch-sized image pooling, the same
+    weights): shapes, finite values, no hand-written kernel launched, and
+    the forward's time; returns the batch-32 model."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    m = build_model("deeplabv3", dtype=torch.bfloat16).init(
+        PATCH, seed=0).cuda()
+    mt = build_model("deeplabv3", dtype=torch.bfloat16,
+                     aspp_pool_window=PATCH).module.cuda().eval()
+    mt.load_state_dict(m.state_dict())
+    zero = {"fused_conv3x3": 0, "fused_up_stage": 0, "bilateral_message": 0}
+    for tag, model, inp in (("batch-32", m, lambda: x),
+                            (f"tile aspp_pool_window={PATCH}", mt,
+                             tile_input)):
+        xi = inp()
+        with torch.inference_mode():
+            reset_launches()
+            p = model(xi)[..., 1]
+            torch.cuda.synchronize()
+            n = read_launches()
+            t = time_ms(lambda: model(xi), reps=3, warmup=1)
+            finite = bool(torch.isfinite(p).all())
+            lo, hi = p.min().item(), p.max().item()
+        if n != zero or tuple(p.shape) != tuple(xi.shape[:3]) or not finite:
+            raise AssertionError(f"DeepLab {tag}: launches {n}, output "
+                                 f"{tuple(p.shape)}, finite {finite}")
+        log(f"[model] DeepLabv3+ bf16 {tag} {tuple(xi.shape)}: p in "
+            f"[{lo:.4f}, {hi:.4f}]; forward {t:.2f} ms (cuDNN and PyTorch "
+            f"ops, no hand-written kernel) | {state['smi']}")
+        del xi, p
+        torch.cuda.empty_cache()
+    del mt
+    return m
+
+
+def kernels_under(e):
+    """Device time (us) of the kernels launched inside profiler CPU event
+    e."""
+    return (sum(k.duration for k in e.kernels if not k.name.startswith(
+        "dpai_")) + sum(kernels_under(c) for c in e.cpu_children))
+
+
+def profile_ensemble(state, models, x, reps=2):
+    """One torch.profiler pass over ``reps`` batch-32 ensemble forwards
+    (each model once per forward, as the patch step runs them with the
+    default TTA): the device's busy share and each model's share of the
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with torch.inference_mode():
+        for m in models.values():
+            m(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for name, m in models.items():
+                    with record_function(f"dpai_{name}"):
+                        m(x)
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.time_range.end > e.time_range.start
+               and not e.name.startswith("dpai_")]
+    if not kernels:
+        raise AssertionError("profiler recorded no device time in the "
+                             "ensemble forward")
+    busy, window = busy_span(kernels)
+    per = {name: sum(kernels_under(e) for e in events
+                     if e.name == f"dpai_{name}"
+                     and e.device_type == DeviceType.CPU) / 1e3 / reps
+           for name in models}
+    total = sum(per.values())
+    log(f"[model] profiler over {reps} batch-32 ensemble forwards: device "
+        f"busy {busy / window:.3f} of {window / 1e3 / reps:.2f} ms per "
+        f"ensemble forward; kernels {busy / 1e3 / reps:.2f} ms, of which "
+        + ", ".join(f"{k} {v:.2f} ms ({v / total:.3f})"
+                    for k, v in per.items())
+        + f"; {len(kernels)} kernel events | {state['smi']}")
 
 
 def reset_launches():
@@ -820,14 +1077,14 @@ def phase_engine(state):
     with dpt.Slide(path) as s:
         plan = plan_patches(s, patch=PATCH, stride=128, batch=BATCH)
 
-    def run(model, tag, slide=path, dims=SLIDE, **kw):
+    def run(model, tag, slide=path, dims=SLIDE, quick=True, **kw):
         outs = {k: os.path.join(d, f"{tag}-{k}.tiff")
                 for k in ("probs", "mask", "uncertainty")}
         status, batches = {}, []
         t0 = time.time()
         mask = dpt.getSegmentation(
             slide, probs_path=outs["probs"], mask_path=outs["mask"],
-            uncertainty_path=outs["uncertainty"], status=status, quick=True,
+            uncertainty_path=outs["uncertainty"], status=status, quick=quick,
             model=model, mode="colon",
             progress_cb=lambda done, total: batches.append(done), **kw)
         torch.cuda.synchronize()
@@ -844,7 +1101,7 @@ def phase_engine(state):
     # starts with every launch count at 0 and reads them at its end
     n_iters, supertile = 10, 4096  # getSegmentation's CRF defaults
     want_bil = n_iters * tissue_tiles(plan, supertile)
-    state["launches"] = {}
+    state["launches"], state["launches_dense"] = {}, {}
     walls = {}
     for crf in (False, True):
         reset_launches()
@@ -858,9 +1115,10 @@ def phase_engine(state):
         if status.get("weights") != "random":
             raise AssertionError(f"weights status {status.get('weights')!r}")
         if crf:
-            state["launches"]["bilateral_message"] = got["bilateral_message"]
+            state["launches_dense"]["bilateral_message"] = \
+                got["bilateral_message"]
         else:
-            state["launches"]["fused_conv3x3"] = got["fused_conv3x3"]
+            state["launches_dense"]["fused_conv3x3"] = got["fused_conv3x3"]
         walls[crf] = wall
         log(f"[engine] dense patch mode crf={crf}: {plan.total_patches} "
             f"patches, {nb} batches of {BATCH}, {len(plan.groups)} "
@@ -870,7 +1128,7 @@ def phase_engine(state):
     profile_crf(state, path, os.path.join(d, "dense-crf0-probs.tiff"),
                 supertile)
     log(f"[engine] CRF post-pass: {want_bil // n_iters} tissue supertiles, "
-        f"{state['launches']['bilateral_message']} bilateral launches; "
+        f"{state['launches_dense']['bilateral_message']} bilateral launches; "
         f"e2e {walls[False]:.2f} s without crf, {walls[True]:.2f} s with "
         f"| {state['smi']}")
 
@@ -891,12 +1149,49 @@ def phase_engine(state):
                                  f"{want} ({ng} supertiles done of "
                                  f"{n_tiles})")
         if not crf:
-            state["launches"]["fused_up_stage"] = got["fused_up_stage"]
+            state["launches_dense"]["fused_up_stage"] = got["fused_up_stage"]
         log(f"[engine] dense tile mode fused_stages=5 crf={crf}: {n_tiles} "
             f"supertile forwards at {TILE_SIDE}^2, launches {got}; wall "
             f"{wall:.2f} s = {plan.total_patches / wall:.1f} equivalent "
             f"patches/s ({plan.total_patches} planned stride-128 patches); "
             f"stages {status['timings']} | {state['smi']}")
+
+    # the 3-model ensemble (quick=False, the viewer's full-quality
+    # request): per batch the dense model's 68 conv launches and
+    # Inception's 10; per tissue supertile in tile mode the dense model's
+    # 58 conv and 5 stage launches and Inception's 5 stage launches, and
+    # with crf=True n_iters bilateral launches
+    for mode, crf in (("patch", False), ("tile", False), ("tile", True)):
+        reset_launches()
+        _, status, nb, wall = run(
+            "dense", f"ensemble-{mode}-crf{int(crf)}", quick=False, crf=crf,
+            inference_mode=mode, fused_stages=5)
+        got = read_launches()
+        if mode == "patch":
+            want = {"fused_conv3x3": 78 * nb, "fused_up_stage": 0,
+                    "bilateral_message": 0}
+            done, total = nb, plan.total_batches
+        else:
+            want = {"fused_conv3x3": 58 * n_tiles,
+                    "fused_up_stage": 10 * n_tiles,
+                    "bilateral_message": n_iters * n_tiles if crf else 0}
+            done, total = nb, n_tiles
+        if done != total or got != want:
+            raise AssertionError(f"ensemble {mode} crf={crf}: launches "
+                                 f"{got}, want {want} ({done} of {total})")
+        if crf:
+            state["launches"]["bilateral_message"] = got["bilateral_message"]
+        elif mode == "patch":
+            state["launches"]["fused_conv3x3"] = got["fused_conv3x3"]
+        else:
+            state["launches"]["fused_up_stage"] = got["fused_up_stage"]
+        unit = "patches/s" if mode == "patch" else "equivalent patches/s"
+        log(f"[engine] ensemble (quick=False) {mode} mode fused_stages=5 "
+            f"crf={crf}: {plan.total_patches} planned patches, "
+            f"{nb} {'batches' if mode == 'patch' else 'supertiles'}, "
+            f"launches {got}; wall {wall:.2f} s = "
+            f"{plan.total_patches / wall:.1f} {unit}; stages "
+            f"{status['timings']} | {state['smi']}")
 
     # the oracle model's segmentation is known: the slide's lesion
     lesion = meta["lesion_mask"]
@@ -1006,11 +1301,6 @@ def profile_crf(state, slide_path, probs_path, supertile):
     if not dev:
         raise AssertionError("profiler recorded no device time in the CRF")
 
-    def kernels_under(e):
-        """Device time (us) of the kernels launched inside CPU event e."""
-        return (sum(k.duration for k in e.kernels if k.name != "dpai_blur2d")
-                + sum(kernels_under(c) for c in e.cpu_children))
-
     def summed(pred):
         return sum(e.time_range.end - e.time_range.start
                    for e in dev if pred(e.name)) / 1e6
@@ -1080,7 +1370,8 @@ def phase_server(state):
                 (b"tissuetype=Colon&crf=1",
                  ("fused_conv3x3", "bilateral_message")),
                 (b"tissuetype=Colon&crf=1&inference_mode=tile",
-                 ("fused_conv3x3", "fused_up_stage", "bilateral_message"))):
+                 ("fused_conv3x3", "fused_up_stage", "bilateral_message")),
+                (b"tissuetype=Colon&quick=0", ("fused_conv3x3",))):
             n0 = read_launches()
             get("/segment", data=form)
             t0 = time.time()
@@ -1144,6 +1435,7 @@ def main():
                         "source": f"digipathai_tpu_torch/csrc/{src}",
                         "replaces": tpu,
                         "launches": state["launches"][name],
+                        "launches_dense": state["launches_dense"][name],
                         **state[key]})
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -12,18 +12,23 @@ loaded weights -> tissue-mask patch plan -> inference -> chunked finalize
   memmaps with host-computed counts;
 - tile mode (``engine/tile_infer.py``): one fully convolutional forward
   per tissue supertile plus a ``patch_size // 2`` halo, written straight
-  into the maps.  ``fused_stages`` runs the DenseNet decoder's last stages
-  on the ``fused_up_stage`` kernel there.
+  into the maps.  ``fused_stages`` runs the U-Net decoders' last stages
+  (DenseNet's and Inception's) on the ``fused_up_stage`` kernel there.
+  ``tile_local_aspp`` (default on) is not a layout rewrite: when
+  ``supertile % patch_size == 0`` DeepLab is rebuilt with
+  ``aspp_pool_window=patch_size`` and the same weights, so its ASPP pools
+  patch-sized windows of the tile instead of the whole tile, as JAX does.
 
+``quick=True`` runs ``model`` alone; ``quick=False`` the reference's
+3-model ensemble (dense, inception, deeplabv3), each with every TTA chain.
 ``crf=True`` refines the mean map per supertile with the mean-field CRF
 (``ops/crf.py``, whose bilateral message runs on the CUDA kernel
 ``csrc/bilateral.cu``): in tile mode each supertile at its flush, in patch
 mode in a post-pass after finalize.  Each refined tile is staged so a
 crashed run replays it.  Options not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item.  The TPU-only layout
-rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``,
-``tile_local_aspp``) are exact, so they are accepted and the canonical form
-runs.
+rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``)
+are exact, so they are accepted and the canonical form runs.
 """
 
 from __future__ import annotations
@@ -66,21 +71,17 @@ def _not_yet(what: str, item: str):
         f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
-def _check_supported(quick, inference_mode, quantized, fold_bn,
-                     data_parallel):
-    if not quick:
-        _not_yet("quick=False (the 3-model ensemble)",
-                 "§A item 9: Inception and DeepLab, with the ensemble")
+def _check_supported(inference_mode, quantized, fold_bn, data_parallel):
     if inference_mode not in ("patch", "tile"):
         raise ValueError(f"inference_mode must be 'patch' or 'tile', "
                          f"got {inference_mode!r}")
     if quantized:
-        _not_yet("quantized", "§A item 14: quantization")
+        _not_yet("quantized", "§A item 8: quantization")
     if fold_bn:
-        _not_yet("fold_bn", "§A item 14: quantization and fold_bn")
+        _not_yet("fold_bn", "§A item 8: quantization and fold_bn")
     if (isinstance(data_parallel, int) and not isinstance(data_parallel, bool)
             and data_parallel > 1):
-        _not_yet(f"data_parallel={data_parallel}", "§A item 12: multi-device")
+        _not_yet(f"data_parallel={data_parallel}", "§A item 6: multi-device")
 
 
 def state_crf_applied(state_path, cfg_key) -> bool:
@@ -160,8 +161,7 @@ def getSegmentation(img_path,
     if mode not in weights_mod.MODES:
         raise ValueError(
             "Unknown mode found, allowed fields are: ['colon', 'liver', 'breast']")
-    _check_supported(quick, inference_mode, quantized, fold_bn,
-                     data_parallel)
+    _check_supported(inference_mode, quantized, fold_bn, data_parallel)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} requested, but "
@@ -171,7 +171,9 @@ def getSegmentation(img_path,
     elif isinstance(compute_dtype, str):
         compute_dtype = getattr(torch, compute_dtype)
 
-    model_names = [model]
+    # quick=True -> one model; else the 3-model ensemble
+    # (reference Segmentation.py:288-300)
+    model_names = list(_ENSEMBLE) if not quick else [model]
     tta_full = tta_ops.resolve_tta_list(tta_list)
 
     # --- weights ---------------------------------------------------------
@@ -185,10 +187,10 @@ def getSegmentation(img_path,
     bundles, variables_list = [], []
     for name in model_names:
         kw = {}
-        if registry.resolve_model_name(name) == "dense":
-            # the decoder's last stages on the fused_up_stage kernel (taken
-            # at N == 1 only, i.e. tile mode); s2d_decoder turns it off, as
-            # in JAX
+        if registry.resolve_model_name(name) in ("dense", "inception"):
+            # the U-Net decoder's last stages on the fused_up_stage kernel
+            # (taken at N == 1 only, i.e. tile mode); s2d_decoder turns it
+            # off, as in JAX
             kw = {"fused_stages": fused_stages, "s2d_decoder": s2d_decoder}
         b = registry.build_model(name, dtype=compute_dtype, **kw)
         if name in _ENSEMBLE:
@@ -298,6 +300,19 @@ def getSegmentation(img_path,
         if (supertile + patch_size) % 32 != 0:
             raise ValueError(
                 "tile mode needs (supertile + patch_size) divisible by 32")
+        if tile_local_aspp and supertile % patch_size == 0:
+            # DeepLab's image pooling is global over its input; over a
+            # supertile that would change its context from the reference's
+            # patches.  Rebuild it with patch-sized pooling windows and the
+            # same weights (no parameter depends on the window)
+            for i, b in enumerate(bundles):
+                if b.name == "deeplabv3":
+                    bundles[i] = registry.build_model(
+                        b.name, dtype=compute_dtype,
+                        aspp_pool_window=patch_size)
+                    m = bundles[i].module.to(device).eval()
+                    m.load_state_dict(variables_list[i].state_dict())
+                    variables_list[i] = m
         tile_crf_cb = None
         if crf_active:
             # each supertile's mean is final at its flush in tile mode, so

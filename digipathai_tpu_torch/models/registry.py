@@ -19,10 +19,11 @@ class ModelBundle:
     module: nn.Module
 
     def init(self, patch_size: int = 256, seed: int = 0) -> nn.Module:
-        """Seeded random parameters (flax's initializers, drawn from a
-        ``torch.Generator``).  ``patch_size`` is kept for signature parity:
-        no parameter shape depends on it."""
-        from .densenet_unet import init_params
+        """Seeded random parameters: flax's initializers, drawn for every
+        Conv and BatchNorm of the module in registration order from one
+        ``torch.Generator`` seeded with ``seed``.  ``patch_size`` is kept
+        for signature parity: no parameter shape depends on it."""
+        from .unet_decoder import init_params
 
         return init_params(self.module, seed).eval()
 
@@ -40,6 +41,18 @@ def _build_dense(**kw) -> ModelBundle:
     return ModelBundle("dense", DenseNet121UNet(**kw))
 
 
+def _build_inception(**kw) -> ModelBundle:
+    from .inception_unet import InceptionResNetV2UNet
+
+    return ModelBundle("inception", InceptionResNetV2UNet(**kw))
+
+
+def _build_deeplabv3(**kw) -> ModelBundle:
+    from .deeplabv3 import DeepLabV3Plus
+
+    return ModelBundle("deeplabv3", DeepLabV3Plus(**kw))
+
+
 def _build_tiny(**kw) -> ModelBundle:
     from .tiny_unet import TinyUNet
 
@@ -52,19 +65,11 @@ def _build_oracle(**kw) -> ModelBundle:
     return ModelBundle("oracle", OracleDarkness(**kw))
 
 
-def _not_ported(name: str) -> Callable[..., ModelBundle]:
-    def build(**kw):
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP.md §A "
-            f"item 9: Inception and DeepLab)")
-    return build
-
-
 # key order is the JAX registry's: substring dispatch resolves alike
 _REGISTRY: Dict[str, Callable[..., ModelBundle]] = {
     "dense": _build_dense,
-    "inception": _not_ported("inception"),
-    "deeplabv3": _not_ported("deeplabv3"),
+    "inception": _build_inception,
+    "deeplabv3": _build_deeplabv3,
     "tiny": _build_tiny,
     "oracle": _build_oracle,
 }

@@ -12,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import conv_fused
-from .densenet_unet import Conv, conv1x1, upsample2x
+from .unet_decoder import Conv, conv1x1, upsample2x
 
 
 class TinyUNet(nn.Module):

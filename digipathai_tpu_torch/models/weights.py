@@ -1,7 +1,7 @@
 """Model weights for the port (``digipathai_tpu/models/weights.py``).
 
 Trained checkpoints are the upstream ``.h5`` release assets.  A torch
-loader for them is not written yet (ROADMAP.md §A item 2), so a checkpoint
+loader for them is not written yet (ROADMAP.md §A item 4), so a checkpoint
 that is present raises rather than being replaced silently by random
 weights.  Without one, the seeded random init stands in, with the JAX
 engine's warning and ``status["weights"] = "random"``.  Nothing downloads.
@@ -37,7 +37,7 @@ def load_variables(bundle, mode: str, model: str, patch_size: int = 256,
     if h5.exists():
         raise NotImplementedError(
             f"trained checkpoint {h5} found, but the .h5 -> torch loader is "
-            f"not ported yet (ROADMAP.md §A item 2)")
+            f"not ported yet (ROADMAP.md §A item 4)")
     if not allow_random:
         raise IOError(
             f"weights for {mode}/{model} unavailable and allow_random=False")

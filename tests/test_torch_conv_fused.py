@@ -135,13 +135,19 @@ def test_other_devices_raise():
 # ------------------------------------------------- the kernel's host side
 
 def _main_path_convs():
-    """(n, h, w, c0, c1, f, taps) of every conv the two main paths launch:
-    a batch-32 256^2 forward and a 4352^2 tile forward with its five
-    decoder stages fused (convA at taps 2 over y, convB at taps 3)."""
-    from digipathai_tpu_torch.models.densenet_unet import kernel_calls
+    """(n, h, w, c0, c1, f, taps) of every distinct conv the main paths
+    launch: a batch-32 256^2 forward and a 4352^2 tile forward with its
+    five decoder stages fused (convA at taps 2 over y, convB at taps 3), of
+    the DenseNet and of the Inception U-Net (whose decoder adds
+    (32,16,16,1536)->320, (32,16,16,1408)->320, (32,32,32,576)->256 and
+    (32,64,64,320)->128, and three stage shapes)."""
+    from digipathai_tpu_torch.models import densenet_unet, inception_unet
 
+    calls = []
+    for model in (densenet_unet, inception_unet):
+        calls += model.kernel_calls(32, 256) + model.kernel_calls(1, 4352, 5)
     out = []
-    for kind, shape, _ in kernel_calls(32, 256) + kernel_calls(1, 4352, 5):
+    for kind, shape in dict.fromkeys((k, s) for k, s, _ in calls):
         if kind == "conv":
             n, h, w, c, f, _ = shape
             out.append((n, h, w, c, 0, f, 3))

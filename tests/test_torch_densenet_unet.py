@@ -15,26 +15,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_parity import randomize
+
 torch.set_num_threads(2)
-
-
-def _randomize(variables, seed):
-    """numpy copy of a flax tree with random BN stats/affines and biases."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, a):
-        a = np.array(a, np.float32)
-        name = path[-1].key
-        if name == "scale":
-            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-        if name in ("bias", "mean"):
-            return rng.normal(0, 0.1, a.shape).astype(np.float32)
-        if name == "var":
-            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-        return a
-
-    tree = jax.tree_util.tree_map_with_path(leaf, variables)
-    return jax.tree_util.tree_map(np.asarray, dict(tree))
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +25,7 @@ def dense_pair():
     """Flax variables for the full DenseNet121-U-Net at 64^2, randomized."""
     from tests.torch_parity import dense_variables
 
-    return _randomize(dense_variables(64, 0), 0)
+    return randomize(dense_variables(64, 0), 0)
 
 
 def _flax_probs(blocks, dtype, variables, x):
@@ -83,7 +66,7 @@ def test_short_blocks_f32():
     m = DenseNet121UNet(blocks=blocks, dtype=jnp.float32)
     v = jax.jit(lambda k: m.init(k, jnp.zeros((1, 64, 64, 3)), train=False))(
         jax.random.PRNGKey(3))
-    v = _randomize(v, 4)
+    v = randomize(v, 4)
     want = _flax_probs(blocks, jnp.float32, v, x)
     got = _torch_probs(blocks, torch.float32, v, x)
     assert np.abs(got - want).max() <= 1e-4

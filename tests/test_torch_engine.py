@@ -137,12 +137,47 @@ def test_fresh_rerun_refines_again(synthetic_slide, tmp_path, monkeypatch,
     np.testing.assert_array_equal(runs[1][2]["mean"], runs[0][2]["mean"])
 
 
+@pytest.fixture(scope="module")
+def small_slide(tmp_path_factory):
+    """A 256x192 synthetic slide: ten 64 px patches at stride 64, in two
+    128 px supertiles."""
+    from tests.fixtures import make_synthetic_slide
+
+    path = tmp_path_factory.mktemp("small") / "small-slide.tiff"
+    make_synthetic_slide(str(path), width=256, height=192, seed=0)
+    return str(path)
+
+
+SMALL = dict(patch_size=64, stride_size=64, batch_size=4, mode="breast",
+             supertile=128, num_workers=1)
+
+
+@pytest.mark.parametrize("kw", [
+    {"quick": False},
+    {"model": "inception", "inference_mode": "tile", "fused_stages": 5},
+], ids=["ensemble", "inception-tile"])
+def test_ensemble_and_inception_run(small_slide, tmp_path, monkeypatch, kw):
+    """``quick=False`` (the 3-model ensemble, patch mode) and
+    ``model="inception"`` (tile mode, its five decoder stages on
+    fused_up_stage) run on the CPU with their seeded random weights."""
+    from digipathai_tpu_torch import getSegmentation
+
+    monkeypatch.setenv("DPAI_CACHE", str(tmp_path / "cache"))
+    status = {}
+    paths = {k: str(tmp_path / f"{k}.tiff")
+             for k in ("probs_path", "mask_path", "uncertainty_path")}
+    mask = getSegmentation(small_slide, **paths, **SMALL, **kw,
+                           status=status, device="cpu")
+    assert mask.shape == (256, 192) and set(np.unique(mask)) <= {0, 255}
+    assert status["weights"] == "random" and "infer" in status["timings"]
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"quick": False}, "ensemble"),
-    ({"model": "inception"}, "Inception"),
-    ({"quantized": "static"}, "quantization"),
-    ({"fold_bn": True}, "fold_bn"),
-    ({"data_parallel": 2}, "multi-device"),
+    pytest.param({"quantized": "static"}, "quantization",
+                 id="kw2-quantization"),
+    pytest.param({"fold_bn": True}, "fold_bn", id="kw3-fold_bn"),
+    pytest.param({"data_parallel": 2}, "multi-device",
+                 id="kw4-multi-device"),
 ])
 def test_unsupported_kwargs_raise(synthetic_slide, tmp_path, monkeypatch, kw,
                                   item):
@@ -192,10 +227,11 @@ print("ok")
     assert r.stdout.strip().endswith("ok")
 
 
-def test_every_module_stands_alone(synthetic_slide, tmp_path):
-    """Importing every module of the port and running the oracle engine
-    with crf=True, in patch and in tile mode, loads no jax, flax or
-    digipathai_tpu module."""
+def test_every_module_stands_alone(synthetic_slide, small_slide, tmp_path):
+    """Importing every module of the port, running the oracle engine with
+    crf=True in patch and in tile mode, and the 3-model ensemble
+    (quick=False) in tile mode loads no jax, flax or digipathai_tpu
+    module."""
     code = f"""
 import importlib, pkgutil, sys
 import digipathai_tpu_torch as pkg
@@ -203,8 +239,18 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) > 30, names
-for name in ("ops.stage_fused", "engine.tile_infer"):
+for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
+             "models.inception_unet", "models.deeplabv3",
+             "models.keras_names", "models.unet_decoder"):
     assert "digipathai_tpu_torch." + name in names, name
+out = pkg.getSegmentation(
+    {small_slide!r}, patch_size=64, stride_size=64, batch_size=4,
+    quick=False, mode="colon", supertile=128, num_workers=1,
+    inference_mode="tile", fused_stages=5,
+    probs_path={str(tmp_path / "p.tiff")!r},
+    mask_path={str(tmp_path / "m.tiff")!r},
+    uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
+assert out.shape == (256, 192), out.shape
 for mode in ("patch", "tile"):
     status = {{}}
     out = pkg.getSegmentation(

@@ -16,6 +16,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_parity import randomize
+
 torch.set_num_threads(2)
 
 F32_TOL = 1e-4      # the bound of tests/test_stage_fused.py
@@ -176,6 +178,41 @@ def test_prepared_operands_run_the_plain_path_on_their_raw_params():
                        None, a[9])
 
 
+# the stages of Inception's 4352^2 tile forward that the DenseNet does not
+# have (stages 4 and 5 are the DenseNet's): (hh, wh, c, cs, f)
+INCEPTION_STAGES = [(136, 136, 1536, 1088, 320), (272, 272, 320, 320, 256),
+                    (544, 544, 256, 192, 128)]
+
+
+@pytest.mark.parametrize("stage", INCEPTION_STAGES)
+def test_inception_stage_shapes_plan_and_run(stage):
+    """Inception's new stage shapes take the wgmma path for both convs (the
+    full coverage check of each plan is in test_torch_conv_fused.py), need
+    a split-K scratch only where K is split, and at their channel widths
+    the prepared stage on a small grid equals the plain version on its raw
+    parameters, with convA on folded taps as the kernel runs it."""
+    from digipathai_tpu_torch.ops.stage_fused import (fused_up_stage,
+                                                      prepare_stage, scratch,
+                                                      stage_plans)
+
+    hh, wh, c, cs, f = stage
+    plans = stage_plans(1, hh, wh, c, cs, f, torch.bfloat16)
+    assert all(p.vector for p in plans)
+    assert plans[0].chunks * plans[0].bk >= c
+    assert plans[1].chunks * plans[1].bk >= f + cs
+    part = scratch(plans, 4 * hh * wh, f, "meta")
+    assert (part is None) == all(p.splits == 1 for p in plans)
+    d = _stage(c + cs, 3, 4, c, cs, f)
+    d["ka"] /= np.float32(np.sqrt(c))  # unit-scale activations at any width
+    d["kb"] /= np.float32(np.sqrt(f + cs))
+    a = _args(d, torch.float32)
+    opa, opb = prepare_stage(*a[1:9], dtype=torch.float32, device="cpu")
+    got = fused_up_stage(a[0], opa, None, None, None, opb, None, None, None,
+                         a[9]).numpy()
+    np.testing.assert_allclose(got, _folded(d, True, torch.float32),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_batch_matches_single_images():
     """N = 3 in one call equals three N = 1 calls (the kernel takes N >= 1
     though the model calls it at N = 1 only)."""
@@ -232,24 +269,6 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch):
 
 # ------------------------------------------------------------------ model
 
-def _randomize(variables, seed):
-    """numpy copy of a flax tree with random BN stats/affines and biases,
-    so every folded affine is exercised."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, a):
-        a = np.array(a, np.float32)
-        name = path[-1].key
-        if name in ("scale", "var"):
-            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-        if name in ("bias", "mean"):
-            return rng.normal(0, 0.1, a.shape).astype(np.float32)
-        return a
-
-    return jax.tree_util.tree_map(
-        np.asarray, dict(jax.tree_util.tree_map_with_path(leaf, variables)))
-
-
 @pytest.fixture(scope="module")
 def dense_fused():
     """One randomized flax tree, one 64^2 input and ONE JAX apply of
@@ -261,7 +280,7 @@ def dense_fused():
     from tests.torch_parity import dense_variables
 
     b = build_model("dense", dtype=jnp.float32, fused_stages=5)
-    v = _randomize(dense_variables(64, 0, fused_stages=5), 0)
+    v = randomize(dense_variables(64, 0, fused_stages=5), 0)
     x = np.random.default_rng(1).uniform(-1, 1, (1, 64, 64, 3)).astype(
         np.float32)
     return v, x, np.asarray(jax.jit(b.apply)(v, jnp.asarray(x)))
