@@ -40,6 +40,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              batch 32 and at 4352^2 with aspp_pool_window=256; one
              torch.profiler pass over the batch-32 ensemble forward (device
              busy share, each model's share of the device time);
+4a. weights - each model's seeded weights written as a trained checkpoint
+             with the port's own writers (the .h5 when h5py imports, else
+             the converted .npz cache), loaded by load_variables onto the
+             card from the .h5 and then from the cache, bit for bit;
+4b. fold   - fold_bn on each model at batch 32 in bf16 and f32, folded
+             against unfolded;
+4c. quant  - dense (quantized=True) and DeepLab ("static", calibrated on
+             the card): f32 card vs CPU (the CPU's int8 convs fed the
+             card's inputs), every int8 conv replayed exactly
+             on the CPU, and at batch 32 and at the 4352^2 tile the
+             quantized forward beside the exact one (max|dp|, ms, launches,
+             int8 convs per route);
 5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
              mode and in tile mode with fused_stages=5, each without and
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
@@ -52,7 +64,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              launches per batch) and in tile mode with fused_stages=5
              without and with crf=True (58 conv and 5 + 5 stage launches
              per supertile), each with its wall and stages; then the
-             oracle model against the slide's known lesion (patch mode
+             ensemble in tile mode with quantized="deeplabv3:static",
+             dense with fold_bn=True in patch mode and dense from the
+             checkpoint 4a wrote, each with its wall, stages and launches;
+             then the oracle model against the slide's known lesion (patch
+             mode
              without and with the CRF, and tile mode); then the oracle CRF
              run on the card against the CPU;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
@@ -136,6 +152,20 @@ BIL_TIMED = ("crf_4096", "crf_4096x2048", "do_crf")
 # the oracle CRF run, card vs CPU, f32: the bilateral kernel and the plain
 # message differ by ~1e-6 per iteration, cuDNN and the CPU conv likewise
 CRF_DEVICE_BOUND = 1e-4
+# fold_bn, folded vs unfolded forward: bf16 (a rounding moved per conv, as
+# MODEL_BOUND) and f32 (tests/test_fold_bn.py's bound)
+FOLD_BF16 = 0.02
+FOLD_F32 = 2e-4
+# int8 forward in f32, card vs CPU, with every int8 conv of the CPU's
+# forward fed the card's input at that layer: a value a rounding error away
+# from a .5 step quantizes either way and the flip would propagate (JAX's
+# own quantized forward moves p by up to 4.5e-3 under a 1e-7 relative
+# input change, tests/test_torch_quant.py).  Bound on p, and on the CPU's
+# own input at each int8 conv against the card's, over its scale
+QUANT_F32 = 1e-4
+# one int8 conv, card vs the CPU's exact f64 sums on the same integers: the
+# products are exact, the f32 sums on the card round above 2^24
+INT8_REL = 1e-5
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -340,21 +370,15 @@ def launches_text(counts) -> str:
 
 
 def phase_kernels(state):
-    import torch
-
     # the f32 conv and stage rows compare against cuDNN and cuBLAS in full
     # f32; the switches go back to the user's settings for the phases that
     # follow
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    prev = no_tf32()
     try:
         kernels_conv(state)
         kernels_stage(state)
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        restore_tf32(prev)
     kernels_bilateral(state)
 
 
@@ -724,15 +748,8 @@ def reload_check(m, x, before):
 
     from digipathai_tpu_torch.models.registry import build_model
 
-    fresh = build_model("dense", dtype=torch.bfloat16).init(PATCH,
-                                                            seed=1).cuda()
-    g = torch.Generator(device="cuda").manual_seed(3)
-    with torch.no_grad():
-        for name, t in fresh.state_dict().items():
-            if name.endswith(("scale", "var")):
-                t.copy_(torch.rand(t.shape, generator=g, device="cuda") + 0.5)
-            elif name.endswith("mean"):
-                t.normal_(0.0, 0.1, generator=g)
+    fresh = randomize_bn(build_model("dense", dtype=torch.bfloat16).init(
+        PATCH, seed=1).cuda(), 3)
     m.load_state_dict(fresh.state_dict())
     with torch.inference_mode():
         got, want = m(x), fresh(x)
@@ -854,10 +871,7 @@ def small_input_check(state):
 
     from digipathai_tpu_torch.models.registry import build_model
 
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    prev = no_tf32()
     try:
         g = torch.Generator().manual_seed(4)
         for name, side, kw in (("inception", 64, {}),
@@ -879,8 +893,7 @@ def small_input_check(state):
                 raise AssertionError(f"{name} card vs CPU max|dp| {err}")
             del cpu, card
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        restore_tf32(prev)
 
 
 def inception_forwards(state, x):
@@ -1027,6 +1040,370 @@ def profile_ensemble(state, models, x, reps=2):
         + f"; {len(kernels)} kernel events | {state['smi']}")
 
 
+def randomize_bn(module, seed):
+    """BatchNorm statistics and affines, and conv biases, away from their
+    initial values, drawn on the module's device, so that folding changes
+    every folded conv."""
+    import torch
+
+    dev = next(module.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith(("scale", "var")):
+                t.copy_(torch.rand(t.shape, generator=g, device=dev) + 0.5)
+            elif name.endswith(("mean", "bias")):
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.1)
+    return module
+
+
+def equal_states(a, b) -> int:
+    """The number of tensors in two modules' states, after checking that
+    they hold the same names and the same values bit for bit."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa.keys() != sb.keys():
+        raise AssertionError("state names differ")
+    for k in sa:
+        if not torch.equal(sa[k].cpu(), sb[k].cpu()):
+            raise AssertionError(f"{k} differs")
+    return len(sa)
+
+
+def phase_weights(state):
+    """Trained-weight loading onto the card.  Each model's seeded weights
+    (BatchNorms away from identity) are written as the liver family's
+    checkpoint with the port's own writers: the ``.h5``
+    (``convert_h5.write_keras_h5``) when h5py imports, else the converted
+    ``.npz`` cache (``weights.save_converted``).  ``load_variables`` loads
+    the ``.h5`` (writing the cache), then the cache alone; each load, moved
+    to the card, equals the seeded module bit for bit.  Phase 5 runs dense
+    from these weights."""
+    import torch
+
+    from digipathai_tpu_torch.models import weights
+    from digipathai_tpu_torch.models.bridge import torch_to_flax
+    from digipathai_tpu_torch.models.registry import build_model
+
+    try:
+        import h5py  # noqa: F401
+        have_h5py = True
+    except ImportError:
+        have_h5py = False
+    for i, name in enumerate(("dense", "inception", "deeplabv3")):
+        seeded = randomize_bn(build_model(name).init(PATCH, seed=20 + i),
+                              30 + i).cuda()
+        routes = []
+        if have_h5py:
+            from digipathai_tpu_torch.models.convert_h5 import write_keras_h5
+
+            h5 = weights.h5_path("liver", name)
+            h5.parent.mkdir(parents=True, exist_ok=True)
+            write_keras_h5(h5, torch_to_flax(seeded))
+            status = {}
+            got = weights.load_variables(build_model(name), "liver", name,
+                                         status=status).cuda()
+            equal_states(got, seeded)
+            if "weights" in status or not weights.converted_path(
+                    "liver", name).exists():
+                raise AssertionError(f"{name}: the .h5 did not load")
+            routes.append(".h5")
+        else:
+            weights.save_converted(seeded, weights.converted_path("liver",
+                                                                  name))
+        got = weights.load_variables(build_model(name), "liver", name).cuda()
+        n = equal_states(got, seeded)
+        routes.append(".npz cache")
+        log(f"[weights] {name}: loaded onto the card from "
+            f"{' then '.join(routes)}; {n} tensors equal to the seeded "
+            f"module's bit for bit"
+            + ("" if have_h5py else " (h5py absent: the .h5 route did "
+               "not run)"))
+        del seeded, got
+    torch.cuda.empty_cache()
+
+
+def forward_counts(model, x):
+    """(p(class 1), {kernel: launches}, {int8 route: convs}) of one forward,
+    every count set to 0 just before it."""
+    import torch
+
+    from digipathai_tpu_torch.models import quant
+
+    routes = quant.int8_conv.routes
+    for k in routes:
+        routes[k] = 0
+    with torch.inference_mode():
+        reset_launches()
+        p = model(x)[..., 1]
+        torch.cuda.synchronize()
+        n = read_launches()
+    return p, n, {k: v for k, v in routes.items() if v}
+
+
+def no_tf32():
+    """Turn TF32 off for cuDNN and cuBLAS; returns the previous switches."""
+    import torch
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return prev
+
+
+def restore_tf32(prev):
+    import torch
+
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def phase_fold(state):
+    """fold_bn on the card: each model at batch 32 x 256^2, BatchNorms away
+    from identity, folded (``fold_module``, in place, after a forward)
+    against unfolded, in bf16 (bound FOLD_BF16) and in f32 with TF32 off
+    (bound FOLD_F32); the same kernel launches either way."""
+    import torch
+
+    from digipathai_tpu_torch.models.fold_bn import fold_module
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.ops.color import normalize_patches
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x8 = torch.randint(0, 256, (BATCH, PATCH, PATCH, 3), generator=g,
+                       device="cuda", dtype=torch.uint8)
+    for i, name in enumerate(("dense", "inception", "deeplabv3")):
+        for dt, bound in ((torch.bfloat16, FOLD_BF16),
+                          (torch.float32, FOLD_F32)):
+            prev = no_tf32() if dt == torch.float32 else None
+            try:
+                m = randomize_bn(build_model(name, dtype=dt).init(
+                    PATCH, seed=i).cuda(), 40 + i)
+                x = normalize_patches(x8, dtype=dt)
+                p, n, _ = forward_counts(m, x)
+                with torch.inference_mode():
+                    t0 = time_ms(lambda: m(x), reps=3, warmup=1)
+                folds = fold_module(m)
+                q, nf, _ = forward_counts(m, x)
+                with torch.inference_mode():
+                    t1 = time_ms(lambda: m(x), reps=3, warmup=1)
+            finally:
+                if prev is not None:
+                    restore_tf32(prev)
+            d = (p.float() - q.float()).abs().max().item()
+            log(f"[fold] {name} {str(dt)[6:]} ({BATCH},{PATCH},{PATCH},3): "
+                f"{folds} conv->BN pairs folded; folded vs unfolded "
+                f"max|dp|={d:.3e} (bound {bound}); forward {t1:.2f} ms "
+                f"folded, {t0:.2f} ms unfolded; launches {nf} "
+                f"| {state['smi']}")
+            if not d <= bound or n != nf or not torch.isfinite(q).all():
+                raise AssertionError(f"fold_bn {name} {dt}: max|dp| {d}, "
+                                     f"launches {n} vs {nf}")
+            del m, x, p, q
+            torch.cuda.empty_cache()
+
+
+def replay_int8(model, x):
+    """Every int8 conv of one forward of ``model`` on the card, replayed by
+    a CPU copy of the model (the exact f64 route) on the same input:
+    ({route: convs}, the largest difference over its output's scale)."""
+    import copy
+
+    import torch
+
+    from digipathai_tpu_torch.models import quant
+    from digipathai_tpu_torch.models.unet_decoder import PreparedModule
+
+    routes = quant.int8_conv.routes
+    real = PreparedModule._qconv
+    calls = []
+
+    def spy(self, xi, name, stride=1, same=True):
+        before = dict(routes)
+        y = real(self, xi, name, stride, same)
+        route = next(k for k in routes if routes[k] != before[k])
+        calls.append((name, xi.cpu(), stride, same, y.cpu(), route))
+        return y
+
+    PreparedModule._qconv = spy
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        PreparedModule._qconv = real
+    cpu = copy.deepcopy(model).cpu()
+    cpu._prepared = {}
+    worst, per = 0.0, {}
+    with torch.inference_mode():
+        for name, xi, stride, same, y, route in calls:
+            want = real(cpu, xi, name, stride, same).float()
+            err = (y.float() - want).abs().max().item()
+            worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+            per[route] = per.get(route, 0) + 1
+    return per, worst
+
+
+def pinned_f32(card, cpu, x):
+    """p (class 1) of ``card``'s f32 forward of ``x`` and of ``cpu``'s with
+    each int8 conv fed the card's input at that layer, and the largest
+    difference of the CPU's own int8 inputs from the card's over their
+    scale."""
+    import torch
+
+    from digipathai_tpu_torch.models.unet_decoder import PreparedModule
+
+    real = PreparedModule._qconv
+    seen, worst = {}, [0.0]
+
+    def record(self, xi, name, stride=1, same=True):
+        seen[name] = xi.cpu()
+        return real(self, xi, name, stride, same)
+
+    def pin(self, xi, name, stride=1, same=True):
+        ref = seen.pop(name)
+        worst[0] = max(worst[0], (xi - ref).abs().max().item()
+                       / max(ref.abs().max().item(), 1e-30))
+        return real(self, ref, name, stride, same)
+
+    try:
+        with torch.inference_mode():
+            PreparedModule._qconv = record
+            got = card(x.cuda())[..., 1].cpu()
+            PreparedModule._qconv = pin
+            want = cpu(x)[..., 1]
+    finally:
+        PreparedModule._qconv = real
+    if seen:
+        raise AssertionError(f"int8 convs the CPU did not run: {list(seen)}")
+    return got, want, worst[0]
+
+
+def quant_models(name, mode, fused):
+    """(exact, quantized) bf16 models on the card with the same seeded
+    weights, DeepLab's also windowed for tile mode."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    kw = {"fused_stages": fused} if name == "dense" else {}
+    exact = build_model(name, dtype=torch.bfloat16, **kw).init(
+        PATCH, seed=50).cuda()
+    quantized = build_model(name, dtype=torch.bfloat16, quantized=mode,
+                            **kw).module.cuda().eval()
+    quantized.load_state_dict(exact.state_dict())
+    return exact, quantized
+
+
+def phase_quant(state):
+    """The int8 quantized forwards on the card: dense with
+    ``quantized=True`` (dynamic) and DeepLab with ``"static"`` after
+    ``calibrate`` on the card.  For each: the f32 forward (TF32 off) on the
+    card against the CPU's on a (2, 64, 64, 3) input with the same ranges,
+    the CPU's int8 convs fed the card's inputs (bound QUANT_F32); every int8 conv of a (2, 256, 256, 3) bf16 forward
+    replayed exactly on the CPU (bound INT8_REL, per route); at batch 32 x
+    256^2 and at the 4352^2 tile (dense with fused_stages=5, DeepLab
+    windowed at 256), the quantized forward beside the exact one: max|dp|,
+    ms, kernel launches and int8 convs per route."""
+    import torch
+
+    from digipathai_tpu_torch.models import densenet_unet
+    from digipathai_tpu_torch.models.quant import calib_of, calibrate, set_calib
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.ops.color import normalize_patches
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x32 = normalize_patches(torch.randint(
+        0, 256, (BATCH, PATCH, PATCH, 3), generator=g, device="cuda",
+        dtype=torch.uint8))
+    xs = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(7))
+    xs = xs * 2 - 1
+    for name, mode in (("dense", True), ("deeplabv3", "static")):
+        # f32, card vs CPU
+        cpu = build_model(name, dtype=torch.float32, quantized=mode).init(
+            PATCH, seed=51)
+        card = build_model(name, dtype=torch.float32, quantized=mode
+                           ).module.cuda().eval()
+        card.load_state_dict(cpu.state_dict())
+        prev = no_tf32()
+        try:
+            if mode == "static":
+                calibrate(card, [xs.cuda()])
+                set_calib(cpu, calib_of(card))
+            got, want, seg = pinned_f32(card, cpu, xs)
+        finally:
+            restore_tf32(prev)
+        err = (got - want).abs().max().item()
+        log(f"[quant] {name} quantized={mode!r} f32 (2,64,64,3), card vs "
+            f"CPU, int8 inputs pinned to the card's: max|dp|={err:.3e}, "
+            f"int8 inputs max|d| {seg:.3e} of their scale (bound "
+            f"{QUANT_F32} each)")
+        if not (err <= QUANT_F32 and seg <= QUANT_F32
+                and torch.isfinite(got).all()):
+            raise AssertionError(f"{name} quantized card vs CPU: {err}, "
+                                 f"inputs {seg}")
+        del cpu, card
+
+        exact, qm = quant_models(name, mode, 0)
+        if mode == "static":
+            calibrate(qm, [x32[:8]])
+        per, worst = replay_int8(qm, x32[:2])
+        log(f"[quant] {name}: the int8 convs of a (2,{PATCH},{PATCH},3) "
+            f"bf16 forward replayed on the CPU (f64): {per}, max|d| "
+            f"{worst:.3e} of the output scale (bound {INT8_REL})")
+        if not worst <= INT8_REL:
+            raise AssertionError(f"{name} int8 replay: {worst}")
+        rows = []
+        for tag, xi in (("batch-32", lambda: x32), ("tile", tile_input)):
+            xin = xi()
+            if tag == "tile" and name == "dense":
+                exact.fused_stages = qm.fused_stages = 5
+            elif tag == "tile":
+                # tile mode's DeepLab: the same weights and ranges, pooling
+                # patch-sized windows
+                sd, calib = exact.state_dict(), calib_of(qm)
+                exact, qm = (build_model(
+                    name, dtype=torch.bfloat16, aspp_pool_window=PATCH,
+                    quantized=m_).module.cuda().eval() for m_ in (False, mode))
+                exact.load_state_dict(sd)
+                qm.load_state_dict(sd)
+                set_calib(qm, calib)
+            p, ne, _ = forward_counts(exact, xin)
+            q, nq, routes = forward_counts(qm, xin)
+            if name == "dense":
+                n, side = xin.shape[:2]
+                want = {k: sum(c for kind, _, c in densenet_unet.kernel_calls(
+                    n, side, exact.fused_stages, quantized=True)
+                    if kind == k) for k in ("conv", "stage")}
+                if (nq["fused_conv3x3"], nq["fused_up_stage"]) != (
+                        want["conv"], want["stage"]):
+                    raise AssertionError(f"quantized dense {tag} launched "
+                                         f"{nq}, want {want}")
+            elif any(nq.values()):
+                raise AssertionError(f"DeepLab launched {nq}")
+            with torch.inference_mode():
+                te = time_ms(lambda: exact(xin), reps=3, warmup=1)
+                tq = time_ms(lambda: qm(xin), reps=3, warmup=1)
+            d = (p.float() - q.float()).abs()
+            finite = bool(torch.isfinite(q).all())
+            log(f"[quant] {name} quantized={mode!r} bf16 {tag} "
+                f"{tuple(xin.shape)}: quantized vs exact max|dp|="
+                f"{d.max().item():.4e} mean|dp|={d.mean().item():.4e}; "
+                f"forward {tq:.2f} ms quantized, {te:.2f} ms exact; "
+                f"launches {nq} (exact {ne}); int8 convs per route "
+                f"{routes} | {state['smi']}")
+            if not finite or not routes:
+                raise AssertionError(f"{name} {tag}: finite {finite}, "
+                                     f"routes {routes}")
+            rows.append((tag, nq))
+            del xin, p, q, d
+            torch.cuda.empty_cache()
+        state.setdefault("quant_launches", {})[name] = dict(rows)
+        del exact, qm
+        torch.cuda.empty_cache()
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (a main path starts here)."""
     from digipathai_tpu_torch.ops import bilateral, conv_fused, stage_fused
@@ -1077,7 +1454,8 @@ def phase_engine(state):
     with dpt.Slide(path) as s:
         plan = plan_patches(s, patch=PATCH, stride=128, batch=BATCH)
 
-    def run(model, tag, slide=path, dims=SLIDE, quick=True, **kw):
+    def run(model, tag, slide=path, dims=SLIDE, quick=True, mode="colon",
+            **kw):
         outs = {k: os.path.join(d, f"{tag}-{k}.tiff")
                 for k in ("probs", "mask", "uncertainty")}
         status, batches = {}, []
@@ -1085,7 +1463,7 @@ def phase_engine(state):
         mask = dpt.getSegmentation(
             slide, probs_path=outs["probs"], mask_path=outs["mask"],
             uncertainty_path=outs["uncertainty"], status=status, quick=quick,
-            model=model, mode="colon",
+            model=model, mode=mode,
             progress_cb=lambda done, total: batches.append(done), **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -1190,6 +1568,40 @@ def phase_engine(state):
             f"crf={crf}: {plan.total_patches} planned patches, "
             f"{nb} {'batches' if mode == 'patch' else 'supertiles'}, "
             f"launches {got}; wall {wall:.2f} s = "
+            f"{plan.total_patches / wall:.1f} {unit}; stages "
+            f"{status['timings']} | {state['smi']}")
+
+    # the ensemble in tile mode with DeepLab static int8 (calibrated on the
+    # first supertile's patches first), dense with fold_bn in patch mode,
+    # and dense from the weights phase_weights wrote (the liver family)
+    for tag, kw, per in (
+            ("ensemble tile quantized=deeplabv3:static",
+             dict(quick=False, inference_mode="tile", fused_stages=5,
+                  quantized="deeplabv3:static"),
+             {"fused_conv3x3": 58, "fused_up_stage": 10}),
+            ("dense patch fold_bn=True", dict(fold_bn=True),
+             {"fused_conv3x3": 68, "fused_up_stage": 0}),
+            ("dense patch, trained weights from the written checkpoint",
+             dict(mode="liver"), {"fused_conv3x3": 68, "fused_up_stage": 0})):
+        reset_launches()
+        _, status, nb, wall = run("dense", tag.split(",")[0].replace(
+            " ", "-").replace(":", "-").replace("=", "-"), **kw)
+        got = read_launches()
+        tile = kw.get("inference_mode") == "tile"
+        units = n_tiles if tile else plan.total_batches
+        want = {k: v * units for k, v in per.items()}
+        want["bilateral_message"] = 0
+        if nb != units or got != want:
+            raise AssertionError(f"{tag}: launches {got}, want {want} "
+                                 f"({nb} of {units})")
+        random = status.get("weights") == "random"
+        if random != (kw.get("mode") != "liver"):
+            raise AssertionError(f"{tag}: weights status "
+                                 f"{status.get('weights')!r}")
+        unit = "equivalent patches/s" if tile else "patches/s"
+        log(f"[engine] {tag}: {plan.total_patches} planned patches, {nb} "
+            f"{'supertiles' if tile else 'batches'}, launches {got}, weights "
+            f"{'random' if random else 'loaded'}; wall {wall:.2f} s = "
             f"{plan.total_patches / wall:.1f} {unit}; stages "
             f"{status['timings']} | {state['smi']}")
 
@@ -1412,7 +1824,8 @@ def main():
     state = {}
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_model,
-                      phase_engine, phase_server):
+                      phase_weights, phase_fold, phase_quant, phase_engine,
+                      phase_server):
             t = time.time()
             phase(state)
             log(f"[{phase.__name__[6:]}] done in {time.time() - t:.1f} s")

@@ -25,10 +25,27 @@ loaded weights -> tissue-mask patch plan -> inference -> chunked finalize
 (``ops/crf.py``, whose bilateral message runs on the CUDA kernel
 ``csrc/bilateral.cu``): in tile mode each supertile at its flush, in patch
 mode in a post-pass after finalize.  Each refined tile is staged so a
-crashed run replays it.  Options not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.  The TPU-only layout
-rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``)
-are exact, so they are accepted and the canonical form runs.
+crashed run replays it.
+
+Weights load as the JAX engine's do (``models/weights.py``): the port's
+converted ``.npz`` cache, else the trained ``.h5`` (downloaded unless
+``DPAI_OFFLINE=1``), else the seeded random init with
+``status["weights"] = "random"``.  ``fold_bn=True`` folds each conv -> BN
+pair into the conv once the weights are loaded (``models/fold_bn.py``).
+``quantized`` takes every form the JAX engine takes: True or
+``"dynamic"``, ``"calib"``, ``"static"``, a per-model spec such as
+``"deeplabv3:static,dense:off"`` or a dict (``_resolve_quant``); it runs
+each model's eligible convs in int8 (``models/quant.py``).  A static model
+is calibrated first on up to 8 tissue patches of the first planned
+supertile.  The resume state's config key covers the quantization of the
+models that run (``_quant_tag``), so a changed knob starts anew.
+
+``data_parallel`` above 1 raises ``NotImplementedError`` (ROADMAP.md
+§A item 6).  The TPU-only layout rewrites (``s2d_input``,
+``s2d_decoder``, ``wpack``, ``decoder_halo_crop``) are exact, so they are
+accepted and the canonical form runs.  The JAX package's binary head
+(``models/heads.py::binary_p1``) is a TPU layout rewrite that its engine
+never calls; it is not ported.
 """
 
 from __future__ import annotations
@@ -71,17 +88,69 @@ def _not_yet(what: str, item: str):
         f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
-def _check_supported(inference_mode, quantized, fold_bn, data_parallel):
+def _check_supported(inference_mode, data_parallel):
     if inference_mode not in ("patch", "tile"):
         raise ValueError(f"inference_mode must be 'patch' or 'tile', "
                          f"got {inference_mode!r}")
-    if quantized:
-        _not_yet("quantized", "§A item 8: quantization")
-    if fold_bn:
-        _not_yet("fold_bn", "§A item 8: quantization and fold_bn")
     if (isinstance(data_parallel, int) and not isinstance(data_parallel, bool)
             and data_parallel > 1):
         _not_yet(f"data_parallel={data_parallel}", "§A item 6: multi-device")
+
+
+def _parse_quant_spec(spec):
+    """A per-model quantization spec string as a dict.
+
+    ``"deeplabv3:static"`` -> ``{"deeplabv3": "static"}``;
+    ``"deeplabv3:static,dense:dynamic"`` maps each named model to a mode
+    (``static`` / ``calib`` / ``dynamic``/``true`` -> True / ``off`` ->
+    False).  A string without a colon is a uniform mode and is returned as
+    it is (``"static"`` applies to every model).
+    """
+    if ":" not in spec:
+        return spec
+    out = {}
+    for part in spec.split(","):
+        name, _, mode = part.partition(":")
+        name = registry.resolve_model_name(name.strip())
+        mode = mode.strip().lower()
+        if mode in ("static", "calib"):
+            out[name] = mode
+        elif mode in ("1", "true", "dynamic"):
+            out[name] = True
+        elif mode in ("0", "false", "off", ""):
+            out[name] = False
+        else:
+            raise ValueError(f"unknown quantization mode {mode!r} for "
+                             f"{name!r} (expected static/calib/dynamic/off)")
+    return out
+
+
+def _resolve_quant(quantized, key: str):
+    """The quantization mode of canonical model ``key``: ``quantized`` is
+    False/True/"calib"/"static" (uniform), a spec string
+    (``_parse_quant_spec``) or a dict of canonical model keys to modes."""
+    if isinstance(quantized, str):
+        quantized = _parse_quant_spec(quantized)
+    if isinstance(quantized, dict):
+        return quantized.get(key, False)
+    return quantized
+
+
+def _quant_tag(quantized, keys=None):
+    """The resume key's tag for the quantized knob, the same for any dict
+    order or spec spelling.  With ``keys`` (the canonical keys of the
+    models that run) it covers only their effective modes: a spec naming
+    an absent model leaves the maps as they are, and a uniform mode tags
+    like the same per-model dict."""
+    if keys is not None:
+        return tuple(sorted(
+            (k, q) for k in keys
+            if (q := _resolve_quant(quantized, k))))
+    if isinstance(quantized, str):
+        quantized = _parse_quant_spec(quantized)
+    if isinstance(quantized, dict):
+        return tuple(sorted((k, v) for k, v in quantized.items() if v))
+    return quantized
 
 
 def state_crf_applied(state_path, cfg_key) -> bool:
@@ -161,7 +230,7 @@ def getSegmentation(img_path,
     if mode not in weights_mod.MODES:
         raise ValueError(
             "Unknown mode found, allowed fields are: ['colon', 'liver', 'breast']")
-    _check_supported(inference_mode, quantized, fold_bn, data_parallel)
+    _check_supported(inference_mode, data_parallel)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} requested, but "
@@ -185,20 +254,31 @@ def getSegmentation(img_path,
     _status_set(status, status="Loading Trained weights")
 
     bundles, variables_list = [], []
+    model_kws = {}  # canonical name -> the build's kwargs
     for name in model_names:
+        key = registry.resolve_model_name(name)
         kw = {}
-        if registry.resolve_model_name(name) in ("dense", "inception"):
+        if key in ("dense", "inception"):
             # the U-Net decoder's last stages on the fused_up_stage kernel
             # (taken at N == 1 only, i.e. tile mode); s2d_decoder turns it
             # off, as in JAX
             kw = {"fused_stages": fused_stages, "s2d_decoder": s2d_decoder}
+        q = _resolve_quant(quantized, key)
+        if q:
+            # True (dynamic), "calib" or "static", as given
+            kw["quantized"] = q
         b = registry.build_model(name, dtype=compute_dtype, **kw)
+        model_kws[b.name] = kw
         if name in _ENSEMBLE:
             v = weights_mod.load_variables(
                 b, mode, name, patch_size, status=status,
                 allow_random=allow_random_weights)
         else:
             v = b.init(patch_size)
+        if fold_bn:
+            from ..models.fold_bn import fold_module
+
+            fold_module(v)
         bundles.append(b)
         variables_list.append(v.to(device).eval())
 
@@ -213,17 +293,42 @@ def getSegmentation(img_path,
     X, Y = plan.slide_dims
     mdir = _memmap_dir()
 
+    static_idx = [i for i, b in enumerate(bundles)
+                  if model_kws[b.name].get("quantized") == "static"]
+    if static_idx and plan.groups:
+        # the static int8 ranges, from up to 8 tissue patches of the first
+        # planned supertile in the engine's (x, y, c) patch orientation;
+        # the ranges are per-layer scalars, so patch-sized forwards
+        # calibrate tile mode's forwards as well
+        from ..models.quant import calibrate
+        from ..ops.color import normalize_patches
+
+        g0 = plan.groups[0]
+        sel = g0.coords[np.asarray(g0.valid, bool)][:8]
+        if len(sel) == 0:
+            sel = g0.coords[:1]
+        sample = np.stack([
+            np.asarray(slide.read_region((int(x), int(y)), 0,
+                                         (patch_size, patch_size)))[..., :3]
+            .transpose(1, 0, 2)
+            for x, y in sel]).astype(np.uint8)
+        xn = normalize_patches(torch.from_numpy(sample).to(device),
+                               dtype=compute_dtype)
+        for i in static_idx:
+            calibrate(variables_list[i], [xn])
+
     # --- restartable stitching state --------------------------------------
     # scratch/state keyed by basename + a hash of the absolute path; the
-    # config key names the backend, so maps a JAX run left are not resumed
+    # config key names the backend, so maps a JAX run left are not resumed,
+    # and covers crf and quantized, which change what the maps hold
     abs_path = os.path.abspath(str(img_path))
     path_tag = hashlib.sha256(abs_path.encode()).hexdigest()[:10]
     stem = f"{Path(str(img_path)).stem}-{path_tag}"
     cfg_key = hashlib.sha256(repr((
         "torch", str(compute_dtype), abs_path, X, Y, patch_size, stride_size,
         batch_size, supertile, tuple(model_names), tuple(tta_full),
-        faithful_tta, inference_mode, mask_predictions,
-        bool(crf))).encode()).hexdigest()
+        faithful_tta, inference_mode, mask_predictions, bool(crf),
+        _quant_tag(quantized, keys=model_kws))).encode()).hexdigest()
     state_path = mdir / f"{stem}-stitch.json"
     completed: set = set()
     crf_tiles_done: set = set()
@@ -303,15 +408,19 @@ def getSegmentation(img_path,
         if tile_local_aspp and supertile % patch_size == 0:
             # DeepLab's image pooling is global over its input; over a
             # supertile that would change its context from the reference's
-            # patches.  Rebuild it with patch-sized pooling windows and the
-            # same weights (no parameter depends on the window)
+            # patches.  Rebuild it with patch-sized pooling windows, its own
+            # kwargs, the same weights and the same int8 ranges (no
+            # parameter depends on the window)
+            from ..models.quant import calib_of, set_calib
+
             for i, b in enumerate(bundles):
                 if b.name == "deeplabv3":
                     bundles[i] = registry.build_model(
                         b.name, dtype=compute_dtype,
-                        aspp_pool_window=patch_size)
+                        aspp_pool_window=patch_size, **model_kws[b.name])
                     m = bundles[i].module.to(device).eval()
                     m.load_state_dict(variables_list[i].state_dict())
+                    set_calib(m, calib_of(variables_list[i]))
                     variables_list[i] = m
         tile_crf_cb = None
         if crf_active:

@@ -27,20 +27,48 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+_STATS = ("mean", "var")  # the leaves that are buffers: flax's batch_stats
+
+
+def torch_to_flax(module: nn.Module) -> Dict[str, dict]:
+    """The module's state as a flax variables tree of f32 numpy arrays:
+    BatchNorm ``mean``/``var`` under 'batch_stats', every other leaf under
+    'params'."""
+    out = {"params": {}, "batch_stats": {}}
+    for name, t in module.state_dict().items():
+        layer, leaf = name.rsplit(".", 1)
+        coll = "batch_stats" if leaf in _STATS else "params"
+        out[coll].setdefault(layer, {})[leaf] = (
+            t.detach().to("cpu", torch.float32).numpy().copy())
+    return {k: v for k, v in out.items() if v}
+
+
 def flax_to_torch(variables_np, module: nn.Module) -> nn.Module:
     """Load a flax variables tree (nested dicts of arrays) into ``module``.
 
-    Every leaf of the tree must name a parameter or buffer of the module
-    with the same shape, and every parameter and buffer must be named by a
-    leaf; otherwise it raises ``KeyError`` (names) or ``ValueError``
-    (shapes).  Returns ``module``.
+    Every leaf of 'params' and 'batch_stats' must name a parameter or
+    buffer of the module with the same shape, and every parameter and
+    buffer must be named by a leaf; otherwise it raises ``KeyError``
+    (names) or ``ValueError`` (shapes).  A 'calib' collection sets the
+    named convs' ``amax``.  Returns ``module``.
     """
     leaves = {}
     for collection in ("params", "batch_stats"):
         leaves.update(_flatten(variables_np.get(collection, {})))
-    unknown = set(variables_np) - {"params", "batch_stats"}
+    unknown = set(variables_np) - {"params", "batch_stats", "calib"}
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
+    load_flat(leaves, module)
+    if "calib" in variables_np:
+        from .quant import set_calib
+
+        set_calib(module, variables_np["calib"])
+    return module
+
+
+def load_flat(leaves: Dict[str, np.ndarray], module: nn.Module) -> nn.Module:
+    """Load ``{'<layer>.<leaf>': array}`` into ``module`` with the checks of
+    ``flax_to_torch``; the arrays are copied as f32."""
     state = module.state_dict()
     missing = sorted(set(state) - set(leaves))
     unexpected = sorted(set(leaves) - set(state))

@@ -30,6 +30,12 @@ convs and resizes.  Here they are ``F.conv2d`` (depthwise with
   tile mode.
   The window must divide the features, or ``ValueError``.
 - Dropout is the identity at inference.
+- **``quantized``** (``models/quant.py``) runs the convs with ``min(cin,
+  cout) >= 192`` in int8: the pointwise convs from entry block 2 on, the
+  wide shortcuts, and the ASPP's, the projection's and the decoder's
+  1x1s.  Depthwise and dilated convs, the narrow entry convs and the
+  logits stay exact.  A strided shortcut takes its activation scale over
+  its whole input, as JAX's strided conv does.
 
 All Keras layers here are named explicitly, so the parameter names are
 JAX's (``bridge.flax_to_torch`` is a name-to-name copy).  The output
@@ -56,8 +62,9 @@ class DeepLabV3Plus(PreparedModule):
     """(N, H, W, 3) normalized patches -> (N, H, W, num_classes) f32 softmax."""
 
     def __init__(self, num_classes: int = 2, dtype=torch.bfloat16,
-                 aspp_pool_window: int = 0, s2d_stem: int = 0):
-        super().__init__(dtype)
+                 aspp_pool_window: int = 0, s2d_stem: int = 0,
+                 quantized=False):
+        super().__init__(dtype, quantized)
         self.aspp_pool_window = int(aspp_pool_window)
         add = self.add_module
 
@@ -104,8 +111,16 @@ class DeepLabV3Plus(PreparedModule):
     def _bn(self, y, name, relu):
         return getattr(self, f"{name}_BN")(y, relu=relu)
 
+    def _conv1x1(self, y, name, stride=1):
+        """A 1x1 conv (VALID: at stride 2 it takes every other pixel)."""
+        if self._quantizes(name):
+            return self._qconv(y, name, stride=stride, same=False)
+        return conv1x1(y[:, ::stride, ::stride], getattr(self, name))
+
     def _conv3x3(self, y, name, stride=1):
         """A 3x3 conv with flax SAME padding (asymmetric at stride 2)."""
+        if self._quantizes(name):
+            return self._qconv(y, name, stride=stride)
         w = self._kernel(name)
         if stride == 1:
             return nhwc(F.conv2d(nchw(y), w, padding=1))
@@ -123,8 +138,7 @@ class DeepLabV3Plus(PreparedModule):
                           padding=rate, dilation=rate, groups=y.shape[-1]))
         y = self._bn(y, name, depth_activation)
         name = f"{prefix}_pointwise"
-        y = conv1x1(y, getattr(self, name))
-        return self._bn(y, name, depth_activation)
+        return self._bn(self._conv1x1(y, name), name, depth_activation)
 
     def _block(self, y, prefix, skip_type, stride, rate=1,
                depth_activation=False):
@@ -139,16 +153,15 @@ class DeepLabV3Plus(PreparedModule):
             if i == 1:
                 skip = residual
         if skip_type == "conv":
-            # a 1x1 shortcut: VALID at stride 2 takes every other pixel
             name = f"{prefix}_shortcut"
-            shortcut = conv1x1(y[:, ::stride, ::stride], getattr(self, name))
+            shortcut = self._conv1x1(y, name, stride)
             return residual + self._bn(shortcut, name, False), skip
         if skip_type == "sum":
             return residual + y, skip
         return residual, skip
 
     def _conv1x1_bn_relu(self, y, name):
-        return self._bn(conv1x1(y, getattr(self, name)), name, True)
+        return self._bn(self._conv1x1(y, name), name, True)
 
     def _image_pooling(self, y):
         """The ASPP's image-pooling branch at the features' size."""

@@ -17,6 +17,11 @@ Each kernel takes its operands prepared once and cached
 (``KernelUNet._operands``).  On a CPU input the wrappers run their plain
 versions on the operands' raw parameters.
 
+``quantized`` (``models/quant.py``) runs JAX's int8 set: of the encoder,
+the transitions whose 1x1 conv has ``min(cin, cout) >= 192`` (pool3 and
+pool4; no dense-layer conv qualifies), and the decoder's eligible conv
+blocks (``unet_decoder``).  Every other conv stays on the kernel.
+
 The JAX model's TPU layout options (``halo_crop``, ``s2d_stem``, ``wpack``,
 ``s2d_decoder``) are exact rewrites; they are accepted and the canonical
 form runs.  ``s2d_decoder`` keeps JAX's one side effect: it turns
@@ -44,11 +49,12 @@ BN_EPS_DENSE = 1.001e-5
 
 
 def kernel_calls(n: int, side: int, fused_stages: int = 0,
-                 blocks=(6, 12, 24, 16), growth: int = 32):
+                 blocks=(6, 12, 24, 16), growth: int = 32, quantized=False):
     """The distinct kernel calls of one forward of an (n, side, side, 3)
     input, in order: ``(kernel, shape, calls)`` with kernel ``"conv"``
     (shape ``(n, h, w, c, f, pre_affine)``) or ``"stage"`` (shape ``(n, hh,
-    wh, c, cs, f)``).  ``fused_stages`` applies at n == 1, as in forward."""
+    wh, c, cs, f)``).  ``fused_stages`` applies at n == 1, as in forward;
+    ``quantized`` drops the decoder's int8 conv blocks."""
     out = []
     r, c = side // 4, 64
     skips = [64]
@@ -58,7 +64,8 @@ def kernel_calls(n: int, side: int, fused_stages: int = 0,
         if bi < len(blocks) - 1:
             skips.append(c)
             r, c = r // 2, c // 2
-    return out + decoder_calls(n, side, c, skips[::-1], fused_stages)
+    return out + decoder_calls(n, side, c, skips[::-1], fused_stages,
+                               quantized)
 
 
 class DenseNet121UNet(KernelUNet):
@@ -67,8 +74,10 @@ class DenseNet121UNet(KernelUNet):
     def __init__(self, blocks=(6, 12, 24, 16), growth: int = 32,
                  num_classes: int = 2, dtype=torch.bfloat16,
                  fused_stages: int = 0, halo_crop: int = 0, s2d_stem: int = 0,
-                 wpack: bool = False, s2d_decoder: bool = False):
-        super().__init__(dtype, 0 if s2d_decoder else fused_stages)
+                 wpack: bool = False, s2d_decoder: bool = False,
+                 quantized=False):
+        super().__init__(dtype, 0 if s2d_decoder else fused_stages,
+                         quantized)
         self.blocks = tuple(blocks)
         self.growth = growth
         add = self.add_module
@@ -126,7 +135,9 @@ class DenseNet121UNet(KernelUNet):
 
     def _transition(self, x, name):
         y = getattr(self, f"{name}_bn")(x, relu=True)
-        y = conv1x1(y, getattr(self, f"{name}_conv"))
+        conv = f"{name}_conv"
+        y = (self._qconv(y, conv) if self._quantizes(conv)
+             else conv1x1(y, getattr(self, conv)))
         return nhwc(F.avg_pool2d(nchw(y), 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,13 @@ and the U-Net decoder the DenseNet variant has
 - **SAME padding at stride 2 is asymmetric**: flax pads (0, 1) on an even
   side, where ``padding=1`` would pad (1, 1) and shift the grid; the
   stride-2 convs and max pools pad explicitly (``same_pad``).
+- **``quantized``** (``models/quant.py``) drops the packed heads, as JAX
+  does: every branch conv then runs alone and applies flax's BatchNorm
+  (f32, one rounding) to its conv's output in the compute dtype, JAX's
+  canonical path.  The convs with ``min(cin, cout) >= 192`` run in int8
+  (mixed_6a, block17's 1088 -> 192 head and projection, mixed_7a, block8,
+  conv_7b and the decoder's eligible conv blocks); every other conv stays
+  exact.
 - **The decoder** runs every conv block on ``fused_conv3x3`` at any N (JAX
   takes its Pallas conv only at N == 1 with C, F <= 128; ROADMAP.md §C,
   decoder conv rounding), and with ``fused_stages=k`` at N == 1 its last k
@@ -52,11 +59,11 @@ SKIPS = (1088, 320, 192, 64)  # conv4, conv3, conv2, conv1 channels
 TOP = 1536                    # conv_7b
 
 
-def kernel_calls(n: int, side: int, fused_stages: int = 0):
+def kernel_calls(n: int, side: int, fused_stages: int = 0, quantized=False):
     """The distinct kernel calls of one forward of an (n, side, side, 3)
     input, as ``densenet_unet.kernel_calls`` lists them: the encoder runs
     on cuDNN and cuBLAS, so these are the decoder's."""
-    return decoder_calls(n, side, TOP, SKIPS, fused_stages)
+    return decoder_calls(n, side, TOP, SKIPS, fused_stages, quantized)
 
 
 class CB(NamedTuple):
@@ -75,8 +82,9 @@ class InceptionResNetV2UNet(KernelUNet):
     def __init__(self, num_classes: int = 2, dtype=torch.bfloat16,
                  fused_stages: int = 0, s2d_decoder: bool = False,
                  wpack: bool = False, trunc_last: int = 0,
-                 halo_crop: int = 0, s2d_stem: int = 0):
-        super().__init__(dtype, 0 if s2d_decoder else fused_stages)
+                 halo_crop: int = 0, s2d_stem: int = 0, quantized=False):
+        super().__init__(dtype, 0 if s2d_decoder else fused_stages,
+                         quantized)
         namer = KerasNamer()
 
         def cb(cin, cout, kh, kw=None, stride=1, name=None):
@@ -123,6 +131,8 @@ class InceptionResNetV2UNet(KernelUNet):
     def _conv(self, x, p: CB):
         """The conv of ``p`` in the compute dtype, no BN: a matmul for 1x1,
         else ``F.conv2d`` with SAME padding (explicit at stride 2)."""
+        if self._quantizes(p.conv):
+            return self._qconv(x, p.conv, stride=p.stride)
         conv = getattr(self, p.conv)
         if p.kh == p.kw == 1 and p.stride == 1:
             return conv1x1(x, conv)
@@ -166,7 +176,16 @@ class InceptionResNetV2UNet(KernelUNet):
 
     def _branches(self, x, branches):
         """Branches whose first convs are 1x1 heads on x, each followed by
-        its own chain of folded convs."""
+        its own chain of folded convs; quantized, each conv alone with
+        flax's BatchNorm (JAX's unpacked ``conv2d_bn``)."""
+        if self.quantized:
+            outs = []
+            for b in branches:
+                h = x
+                for p in b:
+                    h = self._conv_bn(h, p)
+                outs.append(h)
+            return outs
         heads = self._heads(x, [b[0] for b in branches])
         outs = []
         for h, b in zip(heads, branches):
@@ -177,7 +196,8 @@ class InceptionResNetV2UNet(KernelUNet):
 
     def _residual(self, x, branches, conv, scale, relu=True):
         mixed = torch.cat(branches, dim=-1)
-        up = conv1x1(mixed, getattr(self, conv))
+        up = (self._qconv(mixed, conv) if self._quantizes(conv)
+              else conv1x1(mixed, getattr(self, conv)))
         # the scale rounds to the compute dtype first, as JAX's weakly
         # typed Python float does
         y = x + up * float(torch.tensor(scale).to(self.dtype))

@@ -19,7 +19,14 @@ folded for the upsample), cached per conv and rebuilt when one of its
 parameters changes (keyed on each parameter's device, ``data_ptr`` and
 ``_version``), so weights loaded after a first forward take effect.  The
 encoders use the same cache (``_operands``) for their own prepared
-tensors.
+tensors, and ``quantized`` models for each int8 conv's weights.
+
+``quantized`` (``models/quant.py``) runs each eligible conv in int8
+(``PreparedModule._qconv``), as JAX's ``QuantConv`` does.  In the decoder
+that is every conv block with ``min(cin, F) >= 192`` outside a fused
+stage: it leaves ``fused_conv3x3`` for the int8 conv, then flax's f32
+BatchNorm and relu, where JAX rounds.  Fused stages never quantize, in JAX
+either.
 
 Parameters keep flax's names and layouts (HWIO kernels; BatchNorm
 ``scale``/``bias`` and ``mean``/``var``), so ``bridge.flax_to_torch`` is a
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 
 from ..ops import conv_fused, stage_fused
 from ..ops.stage_fused import upsample2x
+from . import quant
 
 BN_EPS_DECODER = 1e-3
 DECODER = (320, 256, 128, 96, 64)  # features per decoder stage
@@ -42,13 +50,16 @@ DECODER = (320, 256, 128, 96, 64)  # features per decoder stage
 class Conv(nn.Module):
     """Conv parameters as flax stores them: ``kernel`` (kh, kw, cin, cout)
     and an optional ``bias`` (cout,).  A depthwise conv stores (kh, kw, 1,
-    C), as flax does with ``feature_group_count=C``."""
+    C), as flax does with ``feature_group_count=C``.  ``amax``, the static
+    int8 activation range (``quant.calibrate``), is a buffer outside the
+    state: None until calibrated."""
 
     def __init__(self, kh: int, kw: int, cin: int, cout: int,
                  use_bias: bool = True, init_scale: float = 1.0):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(kh, kw, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.register_buffer("amax", None, persistent=False)
         self.init_scale = init_scale  # variance scale: 1 lecun, 2 he
 
     def params(self):
@@ -144,13 +155,15 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
-def decoder_calls(n: int, side: int, c: int, skips, fused_stages: int = 0):
+def decoder_calls(n: int, side: int, c: int, skips, fused_stages: int = 0,
+                  quantized=False):
     """The decoder's kernel calls for a ``side``^2 input whose encoder ends
     in ``c`` channels at ``side / 32``: ``(kernel, shape, calls)`` with
     kernel ``"conv"`` (shape ``(n, h, w, c, f, False)``) or ``"stage"``
     (shape ``(n, hh, wh, c, cs, f)``).  ``skips``: the skip channels from
     the deepest (at ``side / 16``) to the shallowest (at ``side / 2``).
-    ``fused_stages`` applies at n == 1, as in the forward."""
+    ``fused_stages`` applies at n == 1, as in the forward; with
+    ``quantized`` the int8 conv blocks launch no kernel."""
     out = []
     r = side // 32
     n_fused = min(fused_stages, len(DECODER)) if n == 1 else 0
@@ -158,20 +171,24 @@ def decoder_calls(n: int, side: int, c: int, skips, fused_stages: int = 0):
         if si >= len(DECODER) - n_fused:
             out.append(("stage", (n, r, r, c, cs, feats), 1))
         else:
-            out.append(("conv", (n, 2 * r, 2 * r, c, feats, False), 1))
-            out.append(("conv", (n, 2 * r, 2 * r, feats + cs, feats, False),
-                        1))
+            for cin in (c, feats + cs):
+                if not (quantized and quant.eligible(cin, feats)):
+                    out.append(("conv", (n, 2 * r, 2 * r, cin, feats, False),
+                                1))
         r, c = 2 * r, feats
     return out
 
 
 class PreparedModule(nn.Module):
     """A model in compute dtype ``dtype`` that caches what it prepares from
-    its parameters (packed kernels, folded affines) in ``_operands``."""
+    its parameters (packed kernels, folded affines, int8 weights) in
+    ``_operands``.  ``quantized``: False, or the int8 mode of its eligible
+    convs (``quant.mode_of``)."""
 
-    def __init__(self, dtype):
+    def __init__(self, dtype, quantized=False):
         super().__init__()
         self.dtype = dtype
+        self.quantized = quant.mode_of(quantized)
         self._prepared = {}  # name -> (stamp, operands): see _operands
 
     def _operands(self, key, params, build):
@@ -187,6 +204,27 @@ class PreparedModule(nn.Module):
             hit = self._prepared[key] = (stamp, build())
         return hit[1]
 
+    def _quantizes(self, name: str) -> bool:
+        """Whether conv ``name`` runs in int8 (quantized and eligible; a
+        depthwise kernel has cin 1, so it never does)."""
+        k = getattr(self, name).kernel
+        return bool(self.quantized) and quant.eligible(k.shape[2],
+                                                       k.shape[3])
+
+    def _qconv(self, x, name: str, stride: int = 1, same: bool = True):
+        """Conv ``name`` on NHWC ``x`` in int8: SAME padding (``same``) or
+        VALID, bias included, in the compute dtype.  The activation's scale
+        is taken over all of x, before any stride."""
+        conv = getattr(self, name)
+        w = self._operands(f"{name}:int8", conv.params(),
+                           lambda: quant.prepare_weight(conv.kernel,
+                                                        conv.bias, x.device))
+        scale, q = quant.quantize_activation(x, self.quantized, conv, name)
+        if same and (stride > 1 or w.kh > 1 or w.kw > 1):
+            q = same_pad(q, w.kh, w.kw, stride)
+        return quant.dequantize(quant.int8_conv(q, w, stride), scale, w,
+                                self.dtype)
+
 
 class KernelUNet(PreparedModule):
     """Base of the U-Nets: the shared decoder.
@@ -198,8 +236,8 @@ class KernelUNet(PreparedModule):
     ``fused_up_stage`` at N == 1.
     """
 
-    def __init__(self, dtype, fused_stages: int):
-        super().__init__(dtype)
+    def __init__(self, dtype, fused_stages: int, quantized=False):
+        super().__init__(dtype, quantized)
         self.fused_stages = int(fused_stages)
 
     def _add_decoder(self, c: int, skips, namer, num_classes: int):
@@ -232,6 +270,9 @@ class KernelUNet(PreparedModule):
                 for p in m.params()]
 
     def _conv_block(self, x, i):
+        conv, bn = self._blocks[i]
+        if self._quantizes(conv):
+            return getattr(self, bn)(self._qconv(x, conv), relu=True)
         ops = self._operands(
             f"decoder{i}", self._decoder_stamp(i),
             lambda: conv_fused.prepare(*self._decoder_params(i),

@@ -13,6 +13,14 @@ import jax.numpy as jnp
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _offline(monkeypatch):
+    """The engine loads trained weights, downloading a missing .h5 unless
+    DPAI_OFFLINE=1: no test reaches the network."""
+    monkeypatch.setenv("DPAI_OFFLINE", "1")
+
+
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(patch_size=128, stride_size=64, batch_size=8, mode="breast",
           supertile=512, num_workers=2)
@@ -172,10 +180,41 @@ def test_ensemble_and_inception_run(small_slide, tmp_path, monkeypatch, kw):
     assert status["weights"] == "random" and "infer" in status["timings"]
 
 
+@pytest.mark.parametrize("kw,calibrated", [
+    ({"quantized": "static"}, ["DenseNet121UNet"]),
+    ({"quantized": "deeplabv3:static", "quick": False,
+      "inference_mode": "tile"}, ["DeepLabV3Plus"]),
+    ({"quantized": {"inception": "calib", "dense": True},
+      "model": "inception"}, []),
+    ({"fold_bn": True, "model": "inception", "inference_mode": "tile",
+      "fused_stages": 5}, []),
+    ({"fold_bn": True, "quantized": "dynamic", "model": "deeplabv3"}, []),
+], ids=["static", "ensemble-deeplabv3-static-tile", "per-model-dict-calib",
+        "fold_bn-inception-tile", "fold_bn-dynamic-deeplabv3"])
+def test_quantized_and_fold_bn_run(small_slide, tmp_path, monkeypatch, kw,
+                                   calibrated):
+    """``quantized`` in its JAX forms and ``fold_bn`` run on the CPU in
+    patch and tile mode (their parity with JAX is in test_torch_quant.py
+    and test_torch_fold_bn.py); the static models alone are calibrated
+    first."""
+    from digipathai_tpu_torch import getSegmentation
+    from digipathai_tpu_torch.models import quant
+
+    monkeypatch.setenv("DPAI_CACHE", str(tmp_path / "cache"))
+    seen = []
+    real = quant.calibrate
+    monkeypatch.setattr(quant, "calibrate", lambda m, xs: seen.append(
+        type(m).__name__) or real(m, xs))
+    paths = {k: str(tmp_path / f"{k}.tiff")
+             for k in ("probs_path", "mask_path", "uncertainty_path")}
+    status = {}
+    mask = getSegmentation(small_slide, **paths, **{**SMALL, **kw},
+                           status=status, device="cpu")
+    assert mask.shape == (256, 192) and set(np.unique(mask)) <= {0, 255}
+    assert "infer" in status["timings"] and seen == calibrated
+
+
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"quantized": "static"}, "quantization",
-                 id="kw2-quantization"),
-    pytest.param({"fold_bn": True}, "fold_bn", id="kw3-fold_bn"),
     pytest.param({"data_parallel": 2}, "multi-device",
                  id="kw4-multi-device"),
 ])
@@ -229,9 +268,9 @@ print("ok")
 
 def test_every_module_stands_alone(synthetic_slide, small_slide, tmp_path):
     """Importing every module of the port, running the oracle engine with
-    crf=True in patch and in tile mode, and the 3-model ensemble
-    (quick=False) in tile mode loads no jax, flax or digipathai_tpu
-    module."""
+    crf=True in patch and in tile mode, the 3-model ensemble (quick=False)
+    in tile mode, and dense from a written .npz cache (folded, quantized
+    static) loads no jax, flax or digipathai_tpu module."""
     code = f"""
 import importlib, pkgutil, sys
 import digipathai_tpu_torch as pkg
@@ -241,8 +280,21 @@ for name in names:
 assert len(names) > 30, names
 for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
              "models.inception_unet", "models.deeplabv3",
-             "models.keras_names", "models.unet_decoder"):
+             "models.keras_names", "models.unet_decoder",
+             "models.convert_h5", "models.fold_bn", "models.quant"):
     assert "digipathai_tpu_torch." + name in names, name
+from digipathai_tpu_torch.models import registry, weights
+m = registry.build_model("dense").init(64, seed=7)
+weights.save_converted(m, weights.converted_path("colon", "dense"))
+status = {{}}
+out = pkg.getSegmentation(
+    {small_slide!r}, patch_size=64, stride_size=64, batch_size=4,
+    mode="colon", supertile=128, num_workers=1, fold_bn=True,
+    quantized="static", status=status,
+    probs_path={str(tmp_path / "p.tiff")!r},
+    mask_path={str(tmp_path / "m.tiff")!r},
+    uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
+assert out.shape == (256, 192) and "weights" not in status, status
 out = pkg.getSegmentation(
     {small_slide!r}, patch_size=64, stride_size=64, batch_size=4,
     quick=False, mode="colon", supertile=128, num_workers=1,

@@ -18,6 +18,14 @@ import jax.numpy as jnp
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _offline(monkeypatch):
+    """The engine loads trained weights, downloading a missing .h5 unless
+    DPAI_OFFLINE=1: no test reaches the network."""
+    monkeypatch.setenv("DPAI_OFFLINE", "1")
+
+
 ENSEMBLE = ("dense", "inception", "deeplabv3")
 KW = dict(patch_size=64, stride_size=64, batch_size=4, mode="breast",
           num_workers=1)

@@ -12,6 +12,14 @@ import jax.numpy as jnp
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _offline(monkeypatch):
+    """The engine loads trained weights, downloading a missing .h5 unless
+    DPAI_OFFLINE=1: no test reaches the network."""
+    monkeypatch.setenv("DPAI_OFFLINE", "1")
+
+
 KW = dict(patch_size=128, stride_size=64, batch_size=8, mode="breast",
           supertile=512, num_workers=2, inference_mode="tile",
           data_parallel=False)

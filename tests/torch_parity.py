@@ -3,12 +3,27 @@
 Initialising a JAX model runs a whole forward (about 30 s on a CPU for the
 DenseNet121-U-Net); the parity tests only need a tree of the right names
 and shapes with sensible values, so they take the shapes from
-``jax.eval_shape``.
+``jax.eval_shape``, once per model and size in a process.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(name: str, size: int, model_kw: tuple):
+    """The shapes of ``build_model(name, **model_kw)``'s variables for a
+    ``size``^2 input (tracing the model takes seconds; the shapes never
+    change)."""
+    from digipathai_tpu.models.registry import build_model
+
+    module = build_model(name, dtype=jnp.float32, **dict(model_kw)).module
+    x = jnp.zeros((1, size, size, 3), jnp.float32)
+    return jax.eval_shape(lambda k: module.init(k, x, train=False),
+                          jax.random.PRNGKey(0))
 
 
 def model_variables(name: str, size: int = 64, seed: int = 0, he=None,
@@ -19,12 +34,7 @@ def model_variables(name: str, size: int = 64, seed: int = 0, he=None,
     elsewhere, as the inits scale them; BatchNorm at identity and biases 0
     (``randomize`` draws those).  By default the he layers are the 3x3
     convs with a bias: the U-Net decoders' conv blocks."""
-    from digipathai_tpu.models.registry import build_model
-
-    module = build_model(name, dtype=jnp.float32, **model_kw).module
-    x = jnp.zeros((1, size, size, 3), jnp.float32)
-    shapes = jax.eval_shape(lambda k: module.init(k, x, train=False),
-                            jax.random.PRNGKey(seed))
+    shapes = _shapes(name, size, tuple(sorted(model_kw.items())))
     if he is None:
         def he(layer, leaves):
             return "bias" in leaves and leaves["kernel"].shape[:2] == (3, 3)
