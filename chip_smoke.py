@@ -52,6 +52,22 @@ Phases, in order; any failure raises and the script exits non-zero:
              on the CPU, and at batch 32 and at the 4352^2 tile the
              quantized forward beside the exact one (max|dp|, ms, launches,
              int8 convs per route);
+4d. train  - one train step of a DenseNet121-U-Net with blocks (1, 1, 1, 1)
+             at 64^2, batch 2, on the card against the CPU, in f64 and in
+             f32 (TF32 off): loss, gradients and new BatchNorm statistics;
+             full-width bf16 training at batch 16 x 256^2 of the
+             DenseNet121-U-Net (2 warm-up and 5 timed steps), then one
+             timed step each of Inception and DeepLab (dropout from the
+             step's generator): ms/step, patches/s, peak memory, no kernel
+             launched, and one torch.profiler pass over a step of each
+             (device busy share, kernel time and launches, the kernels
+             with the most device time); the data-parallel step on nccl
+             at world size 1
+             (a process group from parallel.distributed.initialize on a
+             local TCP coordinator) against the plain step; then
+             examples/train_torch.py fine-tunes dense on a synthetic slide
+             and its -gt pair, and getSegmentation loads the saved weights
+             (equal to the trained ones) and runs them on fused_conv3x3;
 5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
              mode and in tile mode with fused_stages=5, each without and
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
@@ -166,6 +182,28 @@ QUANT_F32 = 1e-4
 # one int8 conv, card vs the CPU's exact f64 sums on the same integers: the
 # products are exact, the f32 sums on the card round above 2^24
 INT8_REL = 1e-5
+# one train step, card vs CPU (tests/test_torch_training.py's bounds): in
+# f64 the loss (relative), each gradient leaf over its scale (floored at
+# TRAIN_FLOOR of the tree's largest |g|: a conv bias before a train-mode
+# BatchNorm has a zero gradient, computed as rounding noise) and the new
+# BatchNorm statistics
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_FLOOR = 1e-3
+TRAIN_STATS = 1e-5
+# ... in f32 (TF32 off) the gradient is ill-conditioned: on the CPU the f32
+# step's gradient is up to 4.9e-2 of a leaf's scale and 8.9e-3 of the
+# tree's norm from the f64 step's (three seeds); two f32 runs differ by up
+# to about twice that
+TRAIN_F32_LEAF = 0.2
+TRAIN_F32_NORM = 3e-2
+# the dp step at world size 1 against the plain step, f64
+# (tests/test_torch_distributed.py's bounds)
+DP_GRAD_REL = 1e-5
+DP_STATS = 1e-6
+# full-width training: examples/train.py's defaults, bf16
+TRAIN_BATCH = 16
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1404,6 +1442,295 @@ def phase_quant(state):
         torch.cuda.empty_cache()
 
 
+def train_result(model, x, y, dp=False):
+    """One train step of ``model`` on (x, y) from a fresh adam -> (loss,
+    {leaf: grad}, {buffer: BatchNorm statistic}), all f64 on the CPU, and
+    the launches it made (every count set to 0 just before)."""
+    import torch
+
+    from digipathai_tpu_torch.training import train
+
+    st = train.TrainState(model, train.make_optimizer(model.parameters()))
+    make = train.make_dp_train_step if dp else train.make_train_step
+    reset_launches()
+    loss = float(make()(st, x, y))
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"a train step launched {launches}")
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in model.named_parameters()}
+    stats = {k: v.double().cpu() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return loss, grads, stats
+
+
+def step_errors(want, got):
+    """(relative loss error, worst leaf, its error over its floored scale,
+    the gradient tree's error over its norm, max |d stat|)."""
+    import torch
+
+    (lw, gw, sw), (lg, gg, sg) = want, got
+    top = max(g.abs().max().item() for g in gw.values())
+    errs = {k: (gw[k] - gg[k]).abs().max().item()
+            / max(gw[k].abs().max().item(), TRAIN_FLOOR * top) for k in gw}
+    worst = max(errs, key=errs.get)
+    norm = (torch.sqrt(sum(((gw[k] - gg[k]) ** 2).sum() for k in gw))
+            / torch.sqrt(sum((g ** 2).sum() for g in gw.values()))).item()
+    stats = max((sw[k] - sg[k]).abs().max().item() for k in sw)
+    return abs(lg - lw) / abs(lw), worst, errs[worst], norm, stats
+
+
+def small_dense_pair(dtype, seed):
+    """A DenseNet121-U-Net with blocks (1, 1, 1, 1) on the CPU (seeded,
+    BatchNorms and biases away from identity) and its copy on the card,
+    with a (2, 64, 64, 3) batch and one-hot labels."""
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    cpu = randomize_bn(build_model("dense", dtype=dtype, blocks=(1, 1, 1, 1))
+                       .init(64, seed=seed), seed + 1)
+    card = build_model("dense", dtype=dtype,
+                       blocks=(1, 1, 1, 1)).module.cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(seed + 2)
+    x = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (2, 64, 64), generator=g), 2).float()
+    return cpu, card, x, y
+
+
+def phase_train(state):
+    """Training on the card (``training/train.py``): the step against the
+    CPU's, full-width bf16 steps of the three models, the data-parallel
+    step on nccl, and a fine-tune through ``examples/train_torch.py`` whose
+    weights the engine then runs.  No train step may launch a kernel."""
+    import gc
+
+    import torch
+
+    # 1. one step, card vs CPU: f64 (the bounds of the CPU tests), then f32
+    for dtype in (torch.float64, torch.float32):
+        cpu, card, x, y = small_dense_pair(dtype, 61)
+        prev = no_tf32()
+        try:
+            want = train_result(cpu, x, y)
+            got = train_result(card, x.cuda(), y.cuda())
+        finally:
+            restore_tf32(prev)
+        loss, worst, leaf, norm, stats = step_errors(want, got)
+        f32 = dtype == torch.float32
+        ok = (loss <= TRAIN_LOSS_REL and stats <= TRAIN_STATS
+              and (norm <= TRAIN_F32_NORM and leaf <= TRAIN_F32_LEAF if f32
+                   else leaf <= TRAIN_GRAD_REL))
+        log(f"[train] dense blocks (1,1,1,1) 64^2 x2 {str(dtype)[6:]} step, "
+            f"card vs CPU: loss {want[0]:.6f} rel err {loss:.2e}; worst "
+            f"gradient leaf {worst} {leaf:.2e} of its scale; gradient tree "
+            f"{norm:.2e} of its norm; batch stats {stats:.2e}; "
+            f"{len(want[1])} leaves, no kernel launched")
+        if not ok:
+            raise AssertionError(f"train step {dtype}: card vs CPU outside "
+                                 f"the bounds")
+    del cpu, card
+
+    # 2. full width, bf16, examples/train.py's batch
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.training import train
+
+    g = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.rand(TRAIN_BATCH, PATCH, PATCH, 3, generator=g,
+                   device="cuda") * 2 - 1
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (TRAIN_BATCH, PATCH, PATCH), generator=g, device="cuda"),
+        2).float()
+    state["train"] = {}
+    for name, warm, timed in (("dense", TRAIN_WARMUP, TRAIN_TIMED),
+                              ("inception", 1, 1), ("deeplabv3", 1, 1)):
+        bundle = build_model(name)
+        model = bundle.init(PATCH, seed=65).cuda()
+        st = train.TrainState(model, train.make_optimizer(model.parameters()))
+        step = train.make_train_step()
+        gen = (torch.Generator(device="cuda").manual_seed(66)
+               if name == "deeplabv3" else None)
+        before = [p.detach().to("cpu", copy=True)
+                  for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, ms = [], []
+        for i in range(warm + timed):
+            t = time.perf_counter()
+            loss = step(st, x, y, generator=gen)
+            torch.cuda.synchronize()
+            if i >= warm:
+                ms.append(1e3 * (time.perf_counter() - t))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches()
+        moved = sum(not torch.equal(a, p.detach().cpu())
+                    for a, p in zip(before, model.parameters()))
+        if any(launches.values()):
+            raise AssertionError(f"{name} training launched {launches}")
+        if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+            raise AssertionError(f"{name}: loss not finite: {losses}")
+        if not moved:
+            raise AssertionError(f"{name}: no parameter moved")
+        med = statistics.median(ms)
+        state["train"][name] = {"ms": med, "peak": peak}
+        log(f"[train] {name} bf16 batch {TRAIN_BATCH} x {PATCH}^2: "
+            f"{med:.2f} ms/step (timed steps {[round(t, 2) for t in ms]}, "
+            f"after {warm} warm-up), {1e3 * TRAIN_BATCH / med:.1f} patches/s, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB; losses "
+            f"{[round(v, 4) for v in losses]}; {moved}/{len(before)} "
+            f"parameters moved; launches {launches} | {state['smi']}")
+        profile_train_step(state, name, lambda: step(st, x, y,
+                                                     generator=gen))
+        del bundle, model, st, before, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    del x, y
+
+    # 3. the data-parallel step on nccl at world size 1
+    import socket
+
+    import torch.distributed as tdist
+
+    from digipathai_tpu_torch.parallel import distributed
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    distributed.initialize(coordinator=f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, device="cuda")
+    try:
+        backend = tdist.get_backend()
+        _, plain, x, y = small_dense_pair(torch.float64, 67)
+        _, dp, _, _ = small_dense_pair(torch.float64, 67)
+        x, y = x.cuda(), y.cuda()
+        want, got = train_result(plain, x, y), train_result(dp, x, y, dp=True)
+        total = distributed.all_hosts_total(3)
+        distributed.barrier()
+    finally:
+        tdist.destroy_process_group()
+    loss, worst, leaf, norm, stats = step_errors(want, got)
+    log(f"[train] dp step on {backend}, world size 1, f64: loss rel err "
+        f"{loss:.2e}; worst gradient leaf {worst} {leaf:.2e} of its scale; "
+        f"batch stats {stats:.2e}; all_hosts_total(3) = {total}")
+    if (backend != "nccl" or loss > TRAIN_LOSS_REL or leaf > DP_GRAD_REL
+            or stats > DP_STATS or total != 3.0):
+        raise AssertionError("dp step on nccl differs from the plain step")
+    del plain, dp
+    train_finetune(state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = max(v["peak"] for v in state["train"].values())
+    log(f"[train] peak memory of the full-width steps {peak / 2 ** 30:.2f} "
+        f"GiB; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB still "
+        f"allocated after the phase")
+
+
+def profile_train_step(state, name, step):
+    """One torch.profiler pass over one train step: the device's busy
+    share over the step's span, its kernel time and launches, and the
+    kernels that take the most device time."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    # the optimizer's record_function range shows on the device's timeline
+    # too: it is not a kernel
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.time_range.end > e.time_range.start
+               and not e.name.startswith("Optimizer.")]
+    if not kernels:
+        log(f"[train] {name} profiler: no device time recorded")
+        return
+    busy, window = busy_span(kernels)
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name[:60]] += e.time_range.end - e.time_range.start
+    top = ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in by_name.most_common(5))
+    log(f"[train] {name} profiled step: {wall:.1f} ms on the host's clock "
+        f"(profiler on); device busy {busy / window:.3f} of "
+        f"{window / 1e3:.2f} ms; kernels {busy / 1e3:.2f} ms in "
+        f"{len(kernels)} launches; most device time: {top}")
+
+
+def train_finetune(state):
+    """``examples/train_torch.py`` fine-tunes dense on a synthetic slide and
+    its ``-gt`` pair into a cache of its own; ``getSegmentation`` then loads
+    those weights (equal to the trained module's) and runs them on
+    ``fused_conv3x3``."""
+    import runpy
+
+    import numpy as np
+    import torch
+
+    import digipathai_tpu_torch as dpt
+    from digipathai_tpu_torch.io.backend import write_pyramid
+    from digipathai_tpu_torch.models import weights
+
+    d = os.path.join(state["tmp"], "train")
+    os.makedirs(d)
+    slide = os.path.join(d, "ft.tiff")
+    meta = make_synthetic_slide(slide, 2048, 1536, seed=5)
+    write_pyramid(os.path.join(d, "ft-gt.tiff"),
+                  (meta["lesion_mask"] * 255).astype(np.uint8),
+                  compression="deflate")
+    example = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "train_torch.py")
+    cache = os.environ["DPAI_CACHE"]
+    os.environ["DPAI_CACHE"] = os.path.join(d, "cache")
+    try:
+        ns = runpy.run_path(example)
+        t = time.time()
+        reset_launches()
+        st, out = ns["train"](ns["parse_args"](
+            [slide, "--model", "dense", "--steps", "3", "--batch", "8"]))
+        torch.cuda.synchronize()
+        trained_s, train_launches = time.time() - t, read_launches()
+        if any(train_launches.values()):
+            raise AssertionError(f"fine-tuning launched {train_launches}")
+        loaded, status = [], {}
+        load = weights.load_variables
+
+        def spy(*a, **kw):
+            loaded.append(load(*a, **kw))
+            return loaded[-1]
+
+        reset_launches()
+        with mock.patch.object(weights, "load_variables", spy):
+            mask = dpt.getSegmentation(
+                slide, model="dense", quick=True, mode="colon", status=status,
+                **{f"{k}_path": os.path.join(d, f"seg-{k}.tiff")
+                   for k in ("probs", "mask", "uncertainty")})
+        torch.cuda.synchronize()
+        got = read_launches()
+    finally:
+        os.environ["DPAI_CACHE"] = cache
+    n = equal_states(loaded[0], st.model)
+    if got["fused_conv3x3"] <= 0 or "weights" in status:
+        raise AssertionError(f"segmentation with the fine-tuned weights: "
+                             f"launches {got}, status {status}")
+    log(f"[train] examples/train_torch.py dense, 3 steps of batch 8 in "
+        f"{trained_s:.1f} s -> {os.path.basename(out)}; getSegmentation "
+        f"loaded it ({n} tensors equal to the trained module's), mask "
+        f"{mask.shape}, launches {got} | {state['smi']}")
+    del st, loaded
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (a main path starts here)."""
     from digipathai_tpu_torch.ops import bilateral, conv_fused, stage_fused
@@ -1824,8 +2151,8 @@ def main():
     state = {}
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_model,
-                      phase_weights, phase_fold, phase_quant, phase_engine,
-                      phase_server):
+                      phase_weights, phase_fold, phase_quant, phase_train,
+                      phase_engine, phase_server):
             t = time.time()
             phase(state)
             log(f"[{phase.__name__[6:]}] done in {time.time() - t:.1f} s")

@@ -29,7 +29,13 @@ convs and resizes.  Here they are ``F.conv2d`` (depthwise with
   repeats each over its block, which keeps the context patch-sized in
   tile mode.
   The window must divide the features, or ``ValueError``.
-- Dropout is the identity at inference.
+- **Dropout** (rate ``DROPOUT_RATE``) follows the concat projection. It
+  is the identity at inference; in train mode its mask comes from the
+  ``torch.Generator`` the caller passes to the forward, and a forward
+  without one raises (there is no global RNG).  JAX's train step passes
+  no dropout rng, so its DeepLab cannot train (ROADMAP.md §C).
+- **Train mode** runs every BatchNorm on the batch's statistics; nothing
+  else changes (no conv is quantized, as in JAX).
 - **``quantized``** (``models/quant.py``) runs the convs with ``min(cin,
   cout) >= 192`` in int8: the pointwise convs from entry block 2 on, the
   wide shortcuts, and the ASPP's, the projection's and the decoder's
@@ -56,6 +62,17 @@ __all__ = ["DeepLabV3Plus"]
 
 OUTPUT_STRIDE = 16  # the engine's: entry block 3 at stride 2, exit rate 2
 ATROUS_RATES = (6, 12, 18)
+DROPOUT_RATE = 0.1
+
+
+def dropout(y: torch.Tensor, rate: float, generator: torch.Generator):
+    """flax's ``nn.Dropout``: keep each element with probability 1 - rate,
+    scaled by 1 / (1 - rate) in y's dtype, zero elsewhere; the mask drawn
+    from ``generator`` (on y's device)."""
+    keep = 1.0 - rate
+    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+    return torch.where(mask, y / keep, torch.zeros((), dtype=y.dtype,
+                                                   device=y.device))
 
 
 class DeepLabV3Plus(PreparedModule):
@@ -182,7 +199,13 @@ class DeepLabV3Plus(PreparedModule):
                                                                      dim=2)
         return resize_bilinear_align_corners(b4, (fh, fw_))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """``generator``: the dropout mask's source in train mode."""
+        if self.training and DROPOUT_RATE and generator is None:
+            raise ValueError("DeepLabV3Plus: a train-mode forward draws its "
+                             "dropout mask from a torch.Generator; pass "
+                             "generator=")
         dt = self.dtype
         x = x.to(dt)
         h, w = x.shape[1], x.shape[2]
@@ -208,6 +231,8 @@ class DeepLabV3Plus(PreparedModule):
                                               depth_activation=True))
         y = self._conv1x1_bn_relu(torch.cat(branches, dim=-1),
                                   "concat_projection")
+        if self.training and DROPOUT_RATE:
+            y = dropout(y, DROPOUT_RATE, generator)
 
         # decoder
         up = OUTPUT_STRIDE // 4

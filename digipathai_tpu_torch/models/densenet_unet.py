@@ -17,6 +17,11 @@ Each kernel takes its operands prepared once and cached
 (``KernelUNet._operands``).  On a CPU input the wrappers run their plain
 versions on the operands' raw parameters.
 
+In train mode the forward is JAX's canonical one and runs no kernel: each
+dense layer is BN -> relu -> 1x1 conv -> BN -> relu -> 3x3 ``F.conv2d``,
+then the concat (JAX's ``dense_layer``), every BatchNorm on the batch's
+statistics, and the decoder's train path (``unet_decoder``).
+
 ``quantized`` (``models/quant.py``) runs JAX's int8 set: of the encoder,
 the transitions whose 1x1 conv has ``min(cin, cout) >= 192`` (pool3 and
 pool4; no dense-layer conv qualifies), and the decoder's eligible conv
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 
 from ..ops import conv_fused
 from .keras_names import KerasNamer
-from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1,
+from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1, conv_same,
                            decoder_calls, init_params, nchw, nhwc)
 
 __all__ = ["DenseNet121UNet", "init_params", "kernel_calls"]
@@ -133,6 +138,18 @@ class DenseNet121UNet(KernelUNet):
             c += self.growth
         return buf
 
+    def _dense_block_train(self, x, n, name):
+        """JAX's canonical ``dense_block``: each layer BN -> relu -> 1x1
+        conv -> BN -> relu -> 3x3 conv, concatenated onto its input."""
+        for i in range(n):
+            ln = f"{name}_block{i + 1}"
+            y = getattr(self, f"{ln}_0_bn")(x, relu=True)
+            y = conv1x1(y, getattr(self, f"{ln}_1_conv"))
+            y = getattr(self, f"{ln}_1_bn")(y, relu=True)
+            y = conv_same(y, getattr(self, f"{ln}_2_conv"), self.dtype)
+            x = torch.cat([x, y], dim=-1)
+        return x
+
     def _transition(self, x, name):
         y = getattr(self, f"{name}_bn")(x, relu=True)
         conv = f"{name}_conv"
@@ -150,8 +167,10 @@ class DenseNet121UNet(KernelUNet):
         # zero pad == -inf pad here: the input is post-relu
         y = nhwc(F.max_pool2d(nchw(y), 3, stride=2, padding=1))
         skips = [conv1]
+        dense_block = (self._dense_block_train if self.training
+                       else self._dense_block)
         for bi, n in enumerate(self.blocks):
-            y = self._dense_block(y, n, f"conv{bi + 2}")
+            y = dense_block(y, n, f"conv{bi + 2}")
             if bi < len(self.blocks) - 1:
                 skips.append(y)
                 y = self._transition(y, f"pool{bi + 2}")

@@ -29,6 +29,9 @@ and the U-Net decoder the DenseNet variant has
   (mixed_6a, block17's 1088 -> 192 head and projection, mixed_7a, block8,
   conv_7b and the decoder's eligible conv blocks); every other conv stays
   exact.
+- **Train mode** runs JAX's unpacked ``conv2d_bn`` path too (JAX's
+  ``use_pack`` is off in train mode), every BatchNorm on the batch's
+  statistics, and the decoder's train path: no kernel runs.
 - **The decoder** runs every conv block on ``fused_conv3x3`` at any N (JAX
   takes its Pallas conv only at N == 1 with C, F <= 128; ROADMAP.md §C,
   decoder conv rounding), and with ``fused_stages=k`` at N == 1 its last k
@@ -176,9 +179,9 @@ class InceptionResNetV2UNet(KernelUNet):
 
     def _branches(self, x, branches):
         """Branches whose first convs are 1x1 heads on x, each followed by
-        its own chain of folded convs; quantized, each conv alone with
-        flax's BatchNorm (JAX's unpacked ``conv2d_bn``)."""
-        if self.quantized:
+        its own chain of folded convs; quantized or in train mode, each conv
+        alone with flax's BatchNorm (JAX's unpacked ``conv2d_bn``)."""
+        if self.quantized or self.training:
             outs = []
             for b in branches:
                 h = x

@@ -1,8 +1,9 @@
 """A small 2-stage U-Net for tests (``digipathai_tpu/models/tiny_unet.py``).
 
 Its five 3x3 convs run through ``fused_conv3x3`` (conv + bias + relu), so
-the CPU engine tests go through the kernel module's dispatch.  Submodules
-carry flax's auto-names ``Conv_0`` .. ``Conv_5``.
+the CPU engine tests go through the kernel module's dispatch; in train mode
+they run ``F.conv2d`` (the kernel has no backward).  Submodules carry
+flax's auto-names ``Conv_0`` .. ``Conv_5``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import conv_fused
-from .unet_decoder import Conv, conv1x1, upsample2x
+from .unet_decoder import Conv, conv1x1, conv_same, upsample2x
 
 
 class TinyUNet(nn.Module):
@@ -25,9 +26,12 @@ class TinyUNet(nn.Module):
                                          (6 * w, 2 * w), (3 * w, w)]):
             self.add_module(f"Conv_{i}", Conv(3, 3, cin, cout))
         self.Conv_5 = Conv(1, 1, w, num_classes)
+        self.eval()
 
     def _conv(self, x, i):
         c = getattr(self, f"Conv_{i}")
+        if self.training:
+            return torch.relu(conv_same(x, c, self.dtype))
         return conv_fused.fused_conv3x3(x, c.kernel, c.bias)
 
     @staticmethod

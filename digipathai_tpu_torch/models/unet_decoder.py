@@ -28,6 +28,13 @@ stage: it leaves ``fused_conv3x3`` for the int8 conv, then flax's f32
 BatchNorm and relu, where JAX rounds.  Fused stages never quantize, in JAX
 either.
 
+Every model here is built in eval mode, flax's ``train=False``.  In train
+mode (``module.train()``) no kernel runs and nothing prepared is
+used, as JAX's ``not train`` gates have it: every decoder conv block is
+``F.conv2d`` in the compute dtype, the bias in that dtype, ``BatchNorm`` on
+the batch's statistics and relu, and no stage is fused.  The kernels have
+no backward.
+
 Parameters keep flax's names and layouts (HWIO kernels; BatchNorm
 ``scale``/``bias`` and ``mean``/``var``), so ``bridge.flax_to_torch`` is a
 name-to-name copy.  Activations are NHWC.
@@ -44,6 +51,7 @@ from ..ops.stage_fused import upsample2x
 from . import quant
 
 BN_EPS_DECODER = 1e-3
+BN_MOMENTUM = 0.99  # every JAX model's BatchNorm momentum
 DECODER = (320, 256, 128, 96, 64)  # features per decoder stage
 
 
@@ -79,9 +87,17 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm: ``scale``/``bias`` parameters and ``mean``/``var``
+    """flax's BatchNorm: ``scale``/``bias`` parameters and ``mean``/``var``
     buffers, under flax's names.  ``use_scale=False`` (Keras
-    ``scale=False``) has no ``scale``, as flax then has none."""
+    ``scale=False``) has no ``scale``, as flax then has none.
+
+    At inference it normalizes with ``mean``/``var``.  In train mode it
+    normalizes with the batch's statistics as flax's ``_compute_stats``
+    takes them (in f32 or wider, E[x] and max(0, E[x^2] - E[x]^2) over
+    (N, H, W), the variance biased) and moves ``mean``/``var`` toward them by
+    ``BN_MOMENTUM``, in f32 and outside autograd.  ``reduce``, when set,
+    sums the per-channel sums over the ranks of a data-parallel step
+    (differentiably), so the statistics are the global batch's."""
 
     def __init__(self, features: int, eps: float, use_scale: bool = True):
         super().__init__()
@@ -91,6 +107,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.reduce = None
+        self.train(False)
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
@@ -105,22 +123,46 @@ class BatchNorm(nn.Module):
         return tuple(t for t in (self.scale, self.bias, self.mean, self.var)
                      if t is not None)
 
-    def _mul(self):
-        mul = torch.rsqrt(self.var + self.eps)
+    def _mul(self, var):
+        mul = torch.rsqrt(var + self.eps)
         return mul if self.scale is None else self.scale * mul
 
     def folded(self):
         """(mul, add), f32: BN(x) == x * mul + add."""
-        mul = self._mul()
+        mul = self._mul(self.var)
         return mul, self.bias - self.mean * mul
+
+    def batch_stats(self, xf):
+        """(mean, biased var) of NHWC ``xf`` (f32 or wider) over (N, H, W),
+        and the running statistics updated toward them."""
+        dims = tuple(range(xf.dim() - 1))
+        count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        if self.reduce is not None:
+            sums = self.reduce(sums)
+        mean, mean2 = (sums[:-1] / sums[-1]).chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = 1.0 - BN_MOMENTUM
+            self.mean.copy_(BN_MOMENTUM * self.mean + m * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + m * var)
+        return mean, var
 
     def forward(self, x, relu: bool = False):
         """flax's BatchNorm on an x.dtype input: f32 arithmetic, one
         rounding to x.dtype."""
-        y = (x.float() - self.mean) * self._mul() + self.bias
+        xf = _at_least_f32(x)
+        mean, var = (self.batch_stats(xf) if self.training
+                     else (self.mean, self.var))
+        y = (xf - mean) * self._mul(var) + self.bias
         if relu:
             y = torch.relu(y)
         return y.to(x.dtype)
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x promoted to f32 or wider, as flax promotes BatchNorm's input."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def conv1x1(x: torch.Tensor, conv: Conv) -> torch.Tensor:
@@ -136,6 +178,15 @@ def nchw(x):
 
 def nhwc(x):
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_same(x: torch.Tensor, conv: Conv, dtype) -> torch.Tensor:
+    """A stride-1 SAME conv of NHWC ``x`` in ``dtype`` (one rounding), then
+    the bias in ``dtype``, as flax's ``nn.Conv`` computes it."""
+    kh, kw = conv.kernel.shape[:2]
+    y = nhwc(F.conv2d(nchw(x.to(dtype)), torch_kernel(conv.kernel, dtype),
+                      padding=(kh // 2, kw // 2)))
+    return y if conv.bias is None else y + conv.bias.to(dtype)
 
 
 def torch_kernel(k: torch.Tensor, dtype) -> torch.Tensor:
@@ -183,13 +234,15 @@ class PreparedModule(nn.Module):
     """A model in compute dtype ``dtype`` that caches what it prepares from
     its parameters (packed kernels, folded affines, int8 weights) in
     ``_operands``.  ``quantized``: False, or the int8 mode of its eligible
-    convs (``quant.mode_of``)."""
+    convs (``quant.mode_of``).  It is built in eval mode (flax's
+    ``train=False``); ``.train()`` selects the train path."""
 
     def __init__(self, dtype, quantized=False):
         super().__init__()
         self.dtype = dtype
         self.quantized = quant.mode_of(quantized)
         self._prepared = {}  # name -> (stamp, operands): see _operands
+        self.train(False)
 
     def _operands(self, key, params, build):
         """``build()``'s result, cached under ``key`` until one of
@@ -205,11 +258,12 @@ class PreparedModule(nn.Module):
         return hit[1]
 
     def _quantizes(self, name: str) -> bool:
-        """Whether conv ``name`` runs in int8 (quantized and eligible; a
-        depthwise kernel has cin 1, so it never does)."""
+        """Whether conv ``name`` runs in int8 (quantized, eligible and not
+        training, as JAX's ``conv_ctor(False if train ...)``; a depthwise
+        kernel has cin 1, so it never does)."""
         k = getattr(self, name).kernel
-        return bool(self.quantized) and quant.eligible(k.shape[2],
-                                                       k.shape[3])
+        return (bool(self.quantized) and not self.training
+                and quant.eligible(k.shape[2], k.shape[3]))
 
     def _qconv(self, x, name: str, stride: int = 1, same: bool = True):
         """Conv ``name`` on NHWC ``x`` in int8: SAME padding (``same``) or
@@ -271,6 +325,9 @@ class KernelUNet(PreparedModule):
 
     def _conv_block(self, x, i):
         conv, bn = self._blocks[i]
+        if self.training:
+            return getattr(self, bn)(conv_same(x, getattr(self, conv),
+                                               self.dtype), relu=True)
         if self._quantizes(conv):
             return getattr(self, bn)(self._qconv(x, conv), relu=True)
         ops = self._operands(
@@ -293,9 +350,10 @@ class KernelUNet(PreparedModule):
     def _decode(self, y, skips, n: int):
         """The decoder over the encoder output ``y`` and its ``skips``
         (deepest first) of an N = ``n`` input -> (N, H, W, classes) f32
-        softmax."""
+        softmax.  Stages fuse at N == 1 and never in train mode."""
         dt = self.dtype
-        n_fused = min(self.fused_stages, len(self.stages)) if n == 1 else 0
+        n_fused = (min(self.fused_stages, len(self.stages))
+                   if n == 1 and not self.training else 0)
         first_fused = len(self.stages) - n_fused
         ci = 0
         for si, skip in enumerate(list(skips) + [None]):

@@ -267,8 +267,8 @@ print("ok")
 
 
 def test_every_module_stands_alone(synthetic_slide, small_slide, tmp_path):
-    """Importing every module of the port, running the oracle engine with
-    crf=True in patch and in tile mode, the 3-model ensemble (quick=False)
+    """Importing every module of the port, a TinyUNet train step, running
+    the oracle engine with crf=True in patch and in tile mode, the 3-model ensemble (quick=False)
     in tile mode, and dense from a written .npz cache (folded, quantized
     static) loads no jax, flax or digipathai_tpu module."""
     code = f"""
@@ -281,8 +281,17 @@ assert len(names) > 30, names
 for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
              "models.inception_unet", "models.deeplabv3",
              "models.keras_names", "models.unet_decoder",
-             "models.convert_h5", "models.fold_bn", "models.quant"):
+             "models.convert_h5", "models.fold_bn", "models.quant",
+             "training.losses", "training.train", "parallel.distributed"):
     assert "digipathai_tpu_torch." + name in names, name
+import torch
+from digipathai_tpu_torch.models import registry
+from digipathai_tpu_torch.training.train import init_state, make_train_step
+b = registry.build_model("tiny")
+state = init_state(b, 32, device="cpu")
+loss = make_train_step()(state, torch.zeros(2, 32, 32, 3),
+                         torch.ones(2, 32, 32, 2) / 2)
+assert torch.isfinite(loss) and state.step == 1
 from digipathai_tpu_torch.models import registry, weights
 m = registry.build_model("dense").init(64, seed=7)
 weights.save_converted(m, weights.converted_path("colon", "dense"))
