@@ -87,13 +87,36 @@ Phases, in order; any failure raises and the script exits non-zero:
              mode
              without and with the CRF, and tile mode); then the oracle CRF
              run on the card against the CPU;
+5a. dp     - multi-device inference with two shards on cuda:0
+             (device=["cuda:0", "cuda:0"], data_parallel=2, batch 32 per
+             shard): the sharded step's time per global batch of 64 from
+             build_sharded_step's loop and from a thread per shard, beside
+             two serial steps; dense and then the ensemble (quick=False)
+             in patch mode, serial, two shards, two shards, serial, each
+             dp run's maps held to the serial run's (max|dp| of the mean
+             and variance maps, bound 1e-5; no mask pixel changed away
+             from the threshold; 68 (dense) or 78 (ensemble) conv
+             launches per shard batch); dense tile mode with
+             fused_stages=5 and crf=True, serial and then two shards
+             (supertiles round-robin), bit for bit (58 conv and 5 stage
+             launches per supertile, n_iters bilateral launches per tissue
+             supertile); each with its wall, stages and launches.  With
+             two or more cards the dense, ensemble and tile runs are
+             repeated on ["cuda:0", "cuda:1"] and, with more than two, on
+             device="cuda" with data_parallel=True (every card);
+             otherwise one line says why not;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
              crf=1, then with inference_mode=tile&crf=1 on an engine with
              fused_stages=5, then with quick=0 (the ensemble), each polled
              to Done, then the mask's .dzi and one mask tile.
 
+``python3 chip_smoke.py --cards`` (a host with two or more cards) runs
+phases 1, 2 and of 5a only the serial references and the runs across
+cards, then prints the card's name and power limit and the last line.
+
 Each main path runs with every launch count set to 0 just before it and
-read just after.  Prints a JSON line of per-kernel results, the card's name
+read just after; the ``kernels`` line's ``launches`` add phase 5a's runs
+to the ensemble's.  Prints a JSON line of per-kernel results, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits non-zero before printing any result.
 """
@@ -204,6 +227,9 @@ DP_STATS = 1e-6
 # full-width training: examples/train.py's defaults, bf16
 TRAIN_BATCH = 16
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# grid-dp against the serial run, f32 maps: only the overlap-add's order
+# differs (each shard's batch is one of the serial run's batches of 32)
+DP_BOUND = 1e-5
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -530,7 +556,8 @@ def kernels_conv(state):
                                   "times its launches; ms kernel-only (CUDA "
                                   "graph), wrapper_ms per call with "
                                   "operands prepared beforehand; launches: "
-                                  "the ensemble's patch run"}
+                                  "the ensemble's patch run and phase "
+                                  "5a's runs"}
 
 
 def stage_inputs(n, hh, wh, c, cs, f, dtype, seed):
@@ -640,7 +667,7 @@ def kernels_stage(state):
                                    "graph), wrapper_ms per call on the raw "
                                    "parameters (operands prepared in the "
                                    "call); launches: the ensemble's tile "
-                                   "run"}
+                                   "run and phase 5a's runs"}
 
 
 def bilateral_work(h, w, n_labels, r):
@@ -725,7 +752,7 @@ def kernels_bilateral(state):
                                        "in one CUDA graph), wrapper_ms one "
                                        "call with its host work; launches: "
                                        "the ensemble's tile run with "
-                                       "crf=True"}
+                                       "crf=True and phase 5a's runs"}
 
 
 def phase_model(state):
@@ -1781,6 +1808,8 @@ def phase_engine(state):
     with dpt.Slide(path) as s:
         plan = plan_patches(s, patch=PATCH, stride=128, batch=BATCH)
 
+    state["engine_slide"] = path
+
     def run(model, tag, slide=path, dims=SLIDE, quick=True, mode="colon",
             **kw):
         outs = {k: os.path.join(d, f"{tag}-{k}.tiff")
@@ -1980,6 +2009,247 @@ def phase_engine(state):
         raise AssertionError(f"CRF card vs CPU: max|dp| {err}, {flips} flips")
 
 
+def engine_maps(slide_path):
+    """(mean, var, mask) of the engine's last run on ``slide_path``, copied
+    from its memmaps: f32 and uint8 (Y, X) arrays."""
+    import glob
+
+    import numpy as np
+
+    stem = os.path.splitext(os.path.basename(slide_path))[0]
+    mm = os.path.join(os.environ["DPAI_CACHE"], "memmaps")
+
+    def one(kind, dtype):
+        (f,) = glob.glob(os.path.join(mm, f"{stem}-*-{kind}.dat"))
+        return np.fromfile(f, dtype)
+
+    return one("mean", np.float32), one("var", np.float32), \
+        one("maskbin", np.uint8)
+
+
+def dp_dispatch(state):
+    """The sharded step at full width (DenseNet121-U-Net, bf16, two shards
+    of 32 256^2 patches on cuda:0): median seconds per global batch of 64
+    from ``build_sharded_step``'s loop and, for comparison, with each
+    shard's step submitted to a thread of its own here, beside the serial
+    step on the same 64 patches as two batches of 32."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from digipathai_tpu_torch.engine.infer import build_step
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.parallel import inference as par
+
+    b = build_model("dense")
+    m = b.init(PATCH).cuda()
+    devices = par.make_dp_devices(2, ["cuda:0", "cuda:0"])
+    replicas = par.replicas([m], devices)
+    rng = np.random.default_rng(0)
+    patches = rng.integers(0, 255, (2 * BATCH, PATCH, PATCH, 3), np.uint8)
+    offsets = rng.integers(0, 4096, (2 * BATCH, 2)).astype(np.int32)
+    valid = np.ones(2 * BATCH, bool)
+    serial = build_step([b], ["DEFAULT"], PATCH, device=devices[0])
+    acc1 = par.make_sharded_accumulator(devices[:1], 4096, PATCH, planes=2)
+    accs = par.make_sharded_accumulator(devices, 4096, PATCH, planes=2)
+    looped = par.build_sharded_step([b], ["DEFAULT"], PATCH, devices)
+    steps = [build_step([b], ["DEFAULT"], PATCH, device=d) for d in devices]
+
+    def two_serial():
+        for h in (slice(0, BATCH), slice(BATCH, 2 * BATCH)):
+            serial([m], acc1[0], patches[h], offsets[h], valid[h])
+
+    def one_shard(k, shards):
+        with par.on_device(devices[k]):
+            steps[k](replicas[k], accs[k], *shards[k])
+
+    def wall(fn, reps=10, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts)
+
+    out = {"serial": wall(two_serial)}
+    out["looped"] = wall(lambda: looped(replicas, accs, par.shard_batch(
+        devices, patches, offsets, valid)))
+    with ThreadPoolExecutor(2) as pool:
+        def threaded():
+            shards = par.shard_batch(devices, patches, offsets, valid)
+            for f in [pool.submit(one_shard, k, shards) for k in (0, 1)]:
+                f.result()
+        out["threaded"] = wall(threaded)
+    out["serial"] = (out["serial"] + wall(two_serial)) / 2
+    log(f"[dp] sharded step, dense bf16, 2 shards x {BATCH} on cuda:0, "
+        f"median s per global batch of {2 * BATCH}: looped "
+        f"{out['looped']:.5f}, a thread per shard {out['threaded']:.5f}; "
+        f"serial step on the same patches as 2 batches of {BATCH}: "
+        f"{out['serial']:.5f} (mean of two runs around them) | "
+        f"{state['smi']}")
+    del replicas, m
+
+
+def phase_dp(state, one_card=True):
+    """5a: grid-dp and the tile round-robin against serial runs of the
+    same slide, taken in turns.  ``one_card=False`` (``--cards``) runs only
+    the serial references and the runs across cards."""
+    import numpy as np
+    import torch
+
+    import digipathai_tpu_torch as dpt
+    from digipathai_tpu_torch.engine.planner import plan_patches
+
+    d = os.path.join(state["tmp"], "dp")
+    os.makedirs(d)
+    path = state.get("engine_slide")
+    if path is None:
+        path = os.path.join(d, "smoke-slide.tiff")
+        make_synthetic_slide(path, SLIDE[0], SLIDE[1], seed=0)
+    if one_card:
+        dp_dispatch(state)
+    with dpt.Slide(path) as s:
+        plan = plan_patches(s, patch=PATCH, stride=128, batch=BATCH)
+    n_tiles = len(plan.groups)
+    n_iters = 10
+    added = {"fused_conv3x3": 0, "fused_up_stage": 0, "bilateral_message": 0}
+    refs = {}
+
+    def run(tag, device, n, **kw):
+        """One getSegmentation on ``device`` with ``data_parallel=n``:
+        (shards, status, progress calls, wall, launches)."""
+        outs = {k: os.path.join(d, f"{tag}-{k}.tiff")
+                for k in ("probs", "mask", "uncertainty")}
+        status, done = {}, []
+        reset_launches()
+        t0 = time.time()
+        mask = dpt.getSegmentation(
+            path, probs_path=outs["probs"], mask_path=outs["mask"],
+            uncertainty_path=outs["uncertainty"], status=status,
+            model="dense", mode="colon", device=device, data_parallel=n,
+            progress_cb=lambda k, total: done.append(k), **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = read_launches()
+        for k in added:
+            added[k] += got[k]
+        if mask.shape != SLIDE:
+            raise AssertionError(f"{tag}: mask {mask.shape}")
+        shards = torch.cuda.device_count() if n is True else n
+        return shards, status, len(done), wall, got
+
+    def held(tag, kind, exact):
+        """The last run's maps against the first run of ``kind`` (which
+        becomes the reference when there is none yet)."""
+        mean, var, mask = engine_maps(path)
+        if kind not in refs:
+            refs[kind] = mean, var, mask
+            return "the serial reference"
+        ref = refs[kind]
+        err = max(float(np.abs(mean - ref[0]).max()),
+                  float(np.abs(var - ref[1]).max()))
+        flips = int((mask != ref[2]).sum())
+        near = np.abs(ref[0] - 0.3) <= DP_BOUND  # THRESHOLD = 0.3
+        sure_flips = int(((mask != ref[2]) & ~near).sum())
+        ok = (err == 0.0 and flips == 0) if exact else (
+            err <= DP_BOUND and sure_flips == 0)
+        if not ok:
+            raise AssertionError(f"{tag}: max|dp| {err}, {flips} mask "
+                                 f"pixels changed ({sure_flips} away from "
+                                 f"the threshold)")
+        if exact:
+            return "maps and mask bit for bit the serial run's"
+        return (f"against the serial run max|dp| {err:.3e} (bound "
+                f"{DP_BOUND}), {flips} mask pixels changed")
+
+    def patch_run(kind, device, n):
+        """Dense (``kind="dense"``, 68 conv launches per shard batch) or
+        the ensemble (78) in patch mode, its maps held to the serial
+        run's."""
+        quick = kind == "dense"
+        shards, status, nb, wall, got = run(
+            f"{kind}-patch-{n}", device, n, quick=quick, fused_stages=5)
+        with dpt.Slide(path) as s:
+            batches = plan_patches(s, patch=PATCH, stride=128,
+                                   batch=shards * BATCH).total_batches
+        want = {"fused_conv3x3": (68 if quick else 78) * shards * nb,
+                "fused_up_stage": 0, "bilateral_message": 0}
+        if nb != batches or got != want:
+            raise AssertionError(f"{kind} patch on {device} x {shards}: "
+                                 f"launches {got}, want {want} ({nb} global "
+                                 f"batches, planned {batches})")
+        said = held(f"{kind} patch on {device}", kind, exact=False)
+        log(f"[dp] {kind} patch mode on {device}, data_parallel={n} "
+            f"({shards} shard(s)): {nb} global batches of {shards * BATCH}, "
+            f"launches {got}; {said}; wall {wall:.3f} s = "
+            f"{plan.total_patches / wall:.1f} patches/s; stages "
+            f"{status['timings']} | {state['smi']}")
+        return wall
+
+    def tile_run(device, n):
+        """Dense tile mode with fused_stages=5 and crf=True, supertiles
+        dealt round-robin, bit for bit the serial run."""
+        shards, status, ng, wall, got = run(
+            f"tile-{n}", device, n, inference_mode="tile", fused_stages=5,
+            crf=True)
+        want = {"fused_conv3x3": 58 * n_tiles, "fused_up_stage": 5 * n_tiles,
+                "bilateral_message": n_iters * n_tiles}
+        if ng != n_tiles or got != want:
+            raise AssertionError(f"tile on {device} x {shards}: launches "
+                                 f"{got}, want {want} ({ng} of {n_tiles})")
+        said = held(f"tile crf on {device}", "tile", exact=True)
+        log(f"[dp] dense tile mode fused_stages=5 crf=True on {device}, "
+            f"data_parallel={n} ({shards} shard(s)): {n_tiles} supertiles "
+            f"round-robin, launches {got}; {said}; wall {wall:.3f} s; "
+            f"stages {status['timings']} | {state['smi']}")
+
+    serial = (["cuda:0"], 1)
+    if one_card:
+        # serial, two shards, two shards, serial: walls move with the host,
+        # so dp and serial are compared within these turns
+        two = (["cuda:0", "cuda:0"], 2)
+        for kind in ("dense", "ensemble"):
+            walls = [patch_run(kind, *dev)
+                     for dev in (serial, two, two, serial)]
+            log(f"[dp] {kind} patch mode walls in turns, serial / 2 shards "
+                f"/ 2 shards / serial on cuda:0: "
+                f"{' / '.join(f'{w:.3f}' for w in walls)} s | {state['smi']}")
+        tile_run(*serial)
+        tile_run(*two)
+    else:
+        for kind in ("dense", "ensemble"):
+            patch_run(kind, *serial)
+        tile_run(*serial)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        # a shard per card: the replicas, the uploads, the flush's sum onto
+        # cuda:0 and each supertile's CRF on the card that computed it;
+        # then the default, device="cuda" with data_parallel=True
+        for dev in ((["cuda:0", "cuda:1"], 2), ("cuda", True)):
+            if dev[1] is True and cards == 2:
+                continue
+            for kind in ("dense", "ensemble"):
+                patch_run(kind, *dev)
+            tile_run(*dev)
+    else:
+        log(f"[dp] the two-card runs were not done: this machine has "
+            f"{cards} card, so the shards ran on cuda:0")
+    launches = state.setdefault("launches", dict.fromkeys(added, 0))
+    for k, v in added.items():
+        launches[k] += v
+
+
+def phase_cards(state):
+    """5a with ``--cards``: the serial references and the runs across
+    cards only."""
+    phase_dp(state, one_card=False)
+
+
 def profile_crf(state, slide_path, probs_path, supertile):
     """One torch.profiler pass over the CRF post-pass's work on one tissue
     supertile, as ``refine_slide_crf`` and the engine's write-back do it:
@@ -2148,11 +2418,23 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    cards = sys.argv[1:] == ["--cards"]
+    if sys.argv[1:] and not cards:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only "
+              f"--cards)", file=sys.stderr)
+        return 2
+    if cards and torch.cuda.device_count() < 2:
+        print("chip_smoke: --cards needs two or more cards",
+              file=sys.stderr)
+        return 1
+    phases = (phase_device, phase_build, phase_kernels, phase_model,
+              phase_weights, phase_fold, phase_quant, phase_train,
+              phase_engine, phase_dp, phase_server)
+    if cards:
+        phases = (phase_device, phase_build, phase_cards)
     state = {}
     try:
-        for phase in (phase_device, phase_build, phase_kernels, phase_model,
-                      phase_weights, phase_fold, phase_quant, phase_train,
-                      phase_engine, phase_server):
+        for phase in phases:
             t = time.time()
             phase(state)
             log(f"[{phase.__name__[6:]}] done in {time.time() - t:.1f} s")
@@ -2163,6 +2445,12 @@ def main():
                     if m.split(".")[0] in ("jax", "flax", "digipathai_tpu"))
     if loaded:
         raise AssertionError(f"the port loaded {loaded}")
+    if cards:
+        print(smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     kernels = []
     for name, key, src, tpu in (
             ("fused_conv3x3", "conv", "conv_fused.cu",

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -61,6 +62,17 @@ SIGNATURES = {
 build_logs: dict = {}
 #: seconds each build took
 build_seconds: dict = {}
+
+#: guards every launch count's read-modify-write: kernels launch from
+#: tile mode's flusher threads beside the thread that runs the forwards
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel's
+    wrapper; safe from any number of threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def nvcc_path() -> str:

@@ -3,7 +3,9 @@
 Port of ``digipathai_tpu/engine/infer.py``.  One call per batch: uint8
 patches go to the device, are normalized there in the compute dtype, run
 through every model and TTA chain, and their mean and variance are added
-in place into the supertile accumulator.
+in place into the supertile accumulator.  ``build_step`` is the step of one
+device; grid-dp (``parallel/inference.py::build_sharded_step``) runs one
+such step per shard, each on its own device, replica and accumulator.
 """
 
 from __future__ import annotations
@@ -37,14 +39,17 @@ def build_step(bundles: Sequence, tta_list: Sequence[str], patch: int,
 
     ``variables_list`` holds one module per bundle, on ``device``; ``acc``
     is the device accumulator and is updated in place (and returned);
-    ``patches_u8`` (B, P, P, 3) uint8, ``offsets`` (B, 2) and ``valid`` (B,)
-    are host arrays.
+    ``patches_u8`` (B, P, P, 3) uint8 is a host array or a tensor (already
+    on ``device`` when it comes from ``shard_batch``), ``offsets`` (B, 2)
+    and ``valid`` (B,) are host arrays.
     """
     chains = tta_ops.effective_transforms(tta_list, faithful=faithful_tta)
 
     def step(variables_list, acc, patches_u8, offsets, valid):
         with torch.inference_mode():
-            u8 = torch.from_numpy(np.ascontiguousarray(patches_u8)).to(device)
+            if not isinstance(patches_u8, torch.Tensor):
+                patches_u8 = torch.from_numpy(np.ascontiguousarray(patches_u8))
+            u8 = patches_u8.to(device)
             x = normalize_patches(u8, dtype=compute_dtype)
             mean, var = _predict(bundles, variables_list, x, chains, p1=True)
             if mask_predictions:

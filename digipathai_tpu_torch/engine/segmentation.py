@@ -1,18 +1,23 @@
 """End-to-end WSI segmentation on PyTorch: the public ``getSegmentation``.
 
-Port of ``digipathai_tpu/engine/segmentation.py`` for one device: same
-signature, status strings, three pyramidal TIFFs and return value (the
-0.3-thresholded mean map in (X, Y) orientation).  The flow: seeded or
-loaded weights -> tissue-mask patch plan -> inference -> chunked finalize
--> threshold and pyramid writes.  Inference runs in one of two modes:
+Port of ``digipathai_tpu/engine/segmentation.py``: same signature, status
+strings, three pyramidal TIFFs and return value (the 0.3-thresholded mean
+map in (X, Y) orientation).  The flow: seeded or loaded weights ->
+tissue-mask patch plan -> inference -> chunked finalize -> threshold and
+pyramid writes.  Inference runs in one of two modes:
 
 - patch mode: a threaded uint8 loader, one device step per batch
   (normalize, model x TTA, stitch into a supertile accumulator) and a
   background flush of each supertile's tissue bounding box into host
-  memmaps with host-computed counts;
+  memmaps with host-computed counts.  On D devices it runs grid-dp
+  (``parallel/inference.py``): each global batch of ``D * batch_size``
+  patches is split into D shards, each stitched on its own device into
+  its own accumulator, and a flush sums the D accumulators;
 - tile mode (``engine/tile_infer.py``): one fully convolutional forward
   per tissue supertile plus a ``patch_size // 2`` halo, written straight
-  into the maps.  ``fused_stages`` runs the U-Net decoders' last stages
+  into the maps; on D devices the supertiles are dealt round-robin, each
+  computed (and CRF-refined) on its device.  ``fused_stages`` runs the
+  U-Net decoders' last stages
   (DenseNet's and Inception's) on the ``fused_up_stage`` kernel there.
   ``tile_local_aspp`` (default on) is not a layout rewrite: when
   ``supertile % patch_size == 0`` DeepLab is rebuilt with
@@ -40,8 +45,19 @@ is calibrated first on up to 8 tissue patches of the first planned
 supertile.  The resume state's config key covers the quantization of the
 models that run (``_quant_tag``), so a changed knob starts anew.
 
-``data_parallel`` above 1 raises ``NotImplementedError`` (ROADMAP.md
-§A item 6).  The TPU-only layout rewrites (``s2d_input``,
+Devices: ``device`` is a torch device or a list of them
+(``parallel/inference.py::make_dp_devices``), and ``data_parallel`` picks
+how many of them run, as in JAX: True all of them (``"cuda"`` without an
+index names every visible card), an integer n at most the first n, False
+the first one.  A list may repeat a device; each entry is then a shard of
+its own.  One model replica is built per further shard once the weights
+are loaded, folded, quantized and calibrated (on the first device).  The
+resume key holds the global batch, so a dp run and a serial run never
+resume each other.  ``spatial_shard=True`` on more than one device (one
+supertile over all of them) raises ``NotImplementedError`` (ROADMAP.md §A
+item 6); ``"auto"`` deals supertiles round-robin, where JAX would shard a
+slide with fewer tissue supertiles than devices: the maps are the same,
+only the latency differs.  The TPU-only layout rewrites (``s2d_input``,
 ``s2d_decoder``, ``wpack``, ``decoder_halo_crop``) are exact, so they are
 accepted and the canonical form runs.  The JAX package's binary head
 (``models/heads.py::binary_p1``) is a TPU layout rewrite that its engine
@@ -65,7 +81,7 @@ from ..io.tiff_py import PyramidalTiffWriter
 from ..models import registry
 from ..models import weights as weights_mod
 from ..ops import tta as tta_ops
-from ..ops.stitch import add_counts_host, make_accumulator
+from ..ops.stitch import add_counts_host
 from ..utils.profiling import StageTimer, maybe_profile
 from .infer import build_step
 from .loader import PatchLoader
@@ -83,18 +99,21 @@ def _status_set(status_obj, **kw):
         status_obj[k] = v
 
 
-def _not_yet(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
-
-
-def _check_supported(inference_mode, data_parallel):
+def _check_supported(inference_mode):
     if inference_mode not in ("patch", "tile"):
         raise ValueError(f"inference_mode must be 'patch' or 'tile', "
                          f"got {inference_mode!r}")
-    if (isinstance(data_parallel, int) and not isinstance(data_parallel, bool)
-            and data_parallel > 1):
-        _not_yet(f"data_parallel={data_parallel}", "§A item 6: multi-device")
+
+
+def _n_devices(data_parallel, available: int) -> int:
+    """How many devices run, as the JAX engine resolves it: True (or any
+    truthy non-integer) all ``available``, an integer n at most n, False
+    or 0 one."""
+    if not data_parallel:
+        return 1
+    if isinstance(data_parallel, int) and data_parallel is not True:
+        return max(1, min(available, data_parallel))
+    return available
 
 
 def _parse_quant_spec(spec):
@@ -222,19 +241,27 @@ def getSegmentation(img_path,
     """Segment a whole-slide image; writes three pyramidal TIFFs.
 
     The reference's arguments, the JAX engine's keyword-only knobs, and
-    ``device`` (a torch device; ``"cuda"`` needs a GPU and raises without
-    one).  ``data_parallel=True`` means the one given device.  Returns the
-    thresholded (0/255) mean map in (X, Y) orientation.
+    ``device``: a torch device or a sequence of them.  ``"cuda"`` without
+    an index names every visible card, ``"cuda:1"`` or ``"cpu"`` one
+    device, a list exactly its entries (a repeated entry is one more
+    shard on that device); a CUDA device raises without a GPU.
+    ``data_parallel`` runs on all of the named devices (True, as JAX's
+    every local device), the first n (an integer) or the first one
+    (False).  Returns the thresholded (0/255) mean map in (X, Y)
+    orientation.
     """
+    from ..parallel import inference as par
+
     mode = mode.lower()
     if mode not in weights_mod.MODES:
         raise ValueError(
             "Unknown mode found, allowed fields are: ['colon', 'liver', 'breast']")
-    _check_supported(inference_mode, data_parallel)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={str(device)!r} requested, but "
-                           f"torch.cuda.is_available() is False")
+    _check_supported(inference_mode)
+    devices = par.make_dp_devices(None, device)
+    n_dev = _n_devices(data_parallel, len(devices))
+    devices = devices[:n_dev]
+    device = devices[0]  # weights, calibration and the CRF post-pass
+    global_batch = batch_size * n_dev
     if compute_dtype is None:
         compute_dtype = torch.bfloat16
     elif isinstance(compute_dtype, str):
@@ -288,7 +315,7 @@ def getSegmentation(img_path,
     slide = Slide(str(img_path))
     with timer.stage("plan"):
         plan = plan_patches(slide, patch=patch_size, stride=stride_size,
-                            batch=batch_size, supertile=supertile,
+                            batch=global_batch, supertile=supertile,
                             mask_level=mask_level)
     X, Y = plan.slide_dims
     mdir = _memmap_dir()
@@ -320,13 +347,14 @@ def getSegmentation(img_path,
     # --- restartable stitching state --------------------------------------
     # scratch/state keyed by basename + a hash of the absolute path; the
     # config key names the backend, so maps a JAX run left are not resumed,
-    # and covers crf and quantized, which change what the maps hold
+    # holds the global batch, so dp and serial runs do not resume each
+    # other, and covers crf and quantized, which change what the maps hold
     abs_path = os.path.abspath(str(img_path))
     path_tag = hashlib.sha256(abs_path.encode()).hexdigest()[:10]
     stem = f"{Path(str(img_path)).stem}-{path_tag}"
     cfg_key = hashlib.sha256(repr((
         "torch", str(compute_dtype), abs_path, X, Y, patch_size, stride_size,
-        batch_size, supertile, tuple(model_names), tuple(tta_full),
+        global_batch, supertile, tuple(model_names), tuple(tta_full),
         faithful_tta, inference_mode, mask_predictions, bool(crf),
         _quant_tag(quantized, keys=model_kws))).encode()).hexdigest()
     state_path = mdir / f"{stem}-stitch.json"
@@ -429,7 +457,7 @@ def getSegmentation(img_path,
             # own bucket-padded form) instead of as a serial tail
             from ..ops.crf import refine_tile, slide_tile_index
 
-            def tile_crf_cb(g, img_tile):
+            def tile_crf_cb(g, img_tile, dev):
                 ox, oy = g.origin
                 ti = slide_tile_index(oy, ox, X, supertile)
                 if ti in crf_tiles_done:
@@ -441,7 +469,7 @@ def getSegmentation(img_path,
                 if probs.max() <= 0:
                     return  # glass only: the post-pass skips it alike
                 refined = refine_tile(np.asarray(img_tile[:th, :tw]), probs,
-                                      supertile, device=device, **crf_opts)
+                                      supertile, device=dev, **crf_opts)
                 crf_write(ti, (oy, oy + th, ox, ox + tw), refined)
 
         with maybe_profile("tile_segmentation"):
@@ -453,23 +481,42 @@ def getSegmentation(img_path,
                 on_group_done=lambda gi: save_state(),
                 faithful_tta=faithful_tta, spatial_shard=spatial_shard,
                 crf_cb=tile_crf_cb, bbox_compute=tile_bbox_compute,
-                state_lock=state_lock, device=device)
+                state_lock=state_lock, devices=devices)
     else:
         # counts are computed on the host (add_counts_host), so the
         # accumulator carries mean + var; with one prediction per patch the
         # variance is identically zero and its plane is not fetched
         n_preds = len(bundles) * len(tta_full)
         fetch_planes = 1 if n_preds == 1 else 2
-        step = build_step(bundles, tta_full, patch_size,
-                          faithful_tta=faithful_tta,
-                          compute_dtype=compute_dtype,
-                          mask_predictions=mask_predictions, device=device)
+        # one shard per device, with its own replica and accumulator; the
+        # flush sums the accumulators.  The shards are issued from this
+        # thread: from a thread each, two shards of a batch-32 forward on
+        # one H100 took twice as long (chip_smoke.py phase 5a)
+        replicas = par.replicas(variables_list, devices)
+        if n_dev > 1:
+            sharded = par.build_sharded_step(
+                bundles, tta_full, patch_size, devices,
+                faithful_tta=faithful_tta, compute_dtype=compute_dtype,
+                mask_predictions=mask_predictions)
+
+            def run_batch(accs, b):
+                sharded(replicas, accs, par.shard_batch(
+                    devices, b.patches, b.offsets, b.valid))
+        else:
+            step = build_step(bundles, tta_full, patch_size,
+                              faithful_tta=faithful_tta,
+                              compute_dtype=compute_dtype,
+                              mask_predictions=mask_predictions,
+                              device=device)
+
+            def run_batch(accs, b):
+                step(replicas[0], accs[0], b.patches, b.offsets, b.valid)
         acc_side = supertile + patch_size
         total_batches = max(plan.total_batches, 1)
-        done = sum(len(plan.groups[gi].coords) // batch_size
+        done = sum(len(plan.groups[gi].coords) // global_batch
                    for gi in completed if gi < len(plan.groups))
 
-        def flush(acc, gi):
+        def flush(accs, gi):
             g = plan.groups[gi]
             ox, oy = g.origin
             hx = min(acc_side, X - ox)
@@ -481,7 +528,9 @@ def getSegmentation(img_path,
             sx = int(c[:, 0].max() - ox) + patch_size - rx0
             sy = int(c[:, 1].max() - oy) + patch_size - ry0
             with timer.stage("flush"):
-                host = (acc[:fetch_planes, rx0:rx0 + sx, ry0:ry0 + sy]
+                host = (par.reduce_accumulator(accs, (
+                    slice(0, fetch_planes), slice(rx0, rx0 + sx),
+                    slice(ry0, ry0 + sy)))
                         .transpose(1, 2).contiguous().cpu().numpy())
                 save_state(inflight=gi)  # taint marker: += is not replayable
                 # host block is (planes, sy, sx) at map offset (oy+ry0, ox+rx0)
@@ -496,31 +545,30 @@ def getSegmentation(img_path,
                 completed.add(gi)
             save_state()  # clears the inflight taint
 
-        acc = None
+        accs = None
         cur_group = -1
         with maybe_profile("segmentation"), ThreadPoolExecutor(1) as flusher:
             pending = []
             for batch in PatchLoader(slide, plan, num_workers=num_workers,
                                      skip_groups=completed):
                 if batch.group_index != cur_group:
-                    if acc is not None:
+                    if accs is not None:
                         # flush in the background while the next supertile runs
-                        pending.append(flusher.submit(flush, acc, cur_group))
-                        # each pending flush pins a device accumulator
+                        pending.append(flusher.submit(flush, accs, cur_group))
+                        # each pending flush pins D device accumulators
                         while len(pending) > 2:
                             pending.pop(0).result()
-                    acc = make_accumulator(supertile, patch_size, planes=2,
-                                           device=device)
+                    accs = par.make_sharded_accumulator(
+                        devices, supertile, patch_size, planes=2)
                     cur_group = batch.group_index
                 with timer.stage("infer"):
-                    step(variables_list, acc, batch.patches, batch.offsets,
-                         batch.valid)
+                    run_batch(accs, batch)
                 done += 1
                 _status_set(status, progress=int(done * 100.0 / total_batches))
                 if progress_cb is not None:
                     progress_cb(done, total_batches)
-            if acc is not None:
-                pending.append(flusher.submit(flush, acc, cur_group))
+            if accs is not None:
+                pending.append(flusher.submit(flush, accs, cur_group))
             for fut in pending:
                 fut.result()  # surface flush errors
 
@@ -612,7 +660,8 @@ def getSegmentation(img_path,
     timings = timer.summary()
     _status_set(status, timings=timings)
     print(f"[dpai-torch] {plan.total_patches} patches "
-          f"({len(plan.groups)} supertiles, {device}): {timings}")
+          f"({len(plan.groups)} supertiles, {n_dev} device(s) "
+          f"{[str(d) for d in devices]}): {timings}")
 
     slide.close()
     # the reference returns the thresholded map in (X, Y) orientation

@@ -1,17 +1,26 @@
 """Fully convolutional supertile inference (tile mode) on PyTorch.
 
-Port of ``digipathai_tpu/engine/tile_infer.py`` for one device.  Patch
-mode computes every tissue pixel about 4 times (256 px patches at stride
-128); tile mode runs ONE forward per model x TTA over each tissue
-supertile plus a halo of ``patch // 2`` px and keeps the interior.  At
-supertile 4096 that is one (1, 4352, 4352, 3) forward, and with
-``fused_stages`` the DenseNet decoder runs each of its stages as one
-``fused_up_stage`` kernel (the model routes N == 1 inputs there).
+Port of ``digipathai_tpu/engine/tile_infer.py``.  Patch mode computes
+every tissue pixel about 4 times (256 px patches at stride 128); tile mode
+runs ONE forward per model x TTA over each tissue supertile plus a halo of
+``patch // 2`` px and keeps the interior.  At supertile 4096 that is one
+(1, 4352, 4352, 3) forward, and with ``fused_stages`` the DenseNet decoder
+runs each of its stages as one ``fused_up_stage`` kernel (the model routes
+N == 1 inputs there).
 
 Interior pixels match the patch-mode overlap-add up to the models'
 patch-border padding effects (pointwise models match exactly).  The maps
-are written directly (count = 1): supertiles do not overlap.  Multi-device
-round-robin and the spatially sharded step are not ported yet.
+are written directly (count = 1): supertiles do not overlap.
+
+Several devices: supertiles are independent, so they are dealt
+round-robin over the devices, each with a model replica of its own, and
+each result is flushed (and CRF-refined) by a writer pool.  Each
+supertile is computed as on one device, so the maps equal the serial
+run's bit for bit.  JAX also has a spatially sharded step (one supertile
+over all devices, ``build_tile_step_sp``) that ``spatial_shard="auto"``
+takes when a slide has fewer tissue supertiles than devices; it is not
+ported (ROADMAP.md §A item 6).  Here ``"auto"`` always deals round-robin:
+the maps are the same, only the latency of such a slide differs.
 """
 
 from __future__ import annotations
@@ -153,54 +162,72 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
                        on_group_done=None, faithful_tta: bool = False,
                        spatial_shard="auto", crf_cb=None,
                        bbox_compute: bool = False, state_lock=None,
-                       device="cuda"):
+                       devices=("cuda",)):
     """Segment every tissue supertile of ``plan`` fully convolutionally.
 
     The patch plan's supertile groups serve as the tissue index (a group
-    exists iff its supertile holds strided tissue).  For each group the
-    tile plus halo is read (zero-filled out of bounds), transposed to
-    (x, y, c), run through the per-model steps and ``combine`` on
-    ``device``, and handed to a two-thread flusher that writes mean, var
-    and count = 1 into the host memmaps, marks the group completed (under
-    ``state_lock``) and calls ``on_group_done``.
+    exists iff its supertile holds strided tissue).  Group i goes to
+    ``devices[i % D]``: its tile plus halo is read (zero-filled out of
+    bounds), transposed to (x, y, c), run through the per-model steps and
+    ``combine`` on that device, and handed to a flusher pool of
+    ``max(2, D)`` threads that writes mean, var and count = 1 into the
+    host memmaps, marks the group completed (under ``state_lock``) and
+    calls ``on_group_done``.  ``variables_tuple`` holds the modules on
+    ``devices[0]``; every further device (a repeated one included) gets a
+    replica of its own (``parallel/inference.py::replicate``).
 
     Timer stages: ``read`` (the slide region) and ``infer`` (upload and
     launches; the forward runs asynchronously) in this thread; ``wait``
     (until the supertile's forward has finished on the card), ``flush``
     (device-to-host copy, transposes, memmap writes) and ``crf`` in the
-    flusher threads, summed over both.
+    flusher threads, summed over them.
 
-    ``crf_cb(group, img_tile)`` runs at flush, after the completion mark,
-    under the ``crf`` timer stage: a supertile's mean is final then, so the
-    CRF overlaps the next supertile's read and forward.  ``img_tile`` is
-    the (supertile, supertile, 3) region already read, halo cropped.
+    ``crf_cb(group, img_tile, device)`` runs at flush, after the
+    completion mark, under the ``crf`` timer stage: a supertile's mean is
+    final then, so the CRF overlaps the next supertile's read and forward,
+    on the device that computed the supertile.  ``img_tile`` is the
+    (supertile, supertile, 3) region already read, halo cropped.
 
     ``bbox_compute=True`` runs the forward on the tissue bbox padded up to
     one of three square compute buckets instead of the whole supertile,
     keeping the same halo context, so written pixels keep the same
     receptive-field semantics.
 
-    ``spatial_shard=True`` raises: one device cannot shard a tile.
+    ``spatial_shard``: JAX's conditions.  True raises ``ValueError`` where
+    JAX cannot shard (one device, or ``(S + 2*halo) % D != 0``) and
+    ``NotImplementedError`` where it would (the spatially sharded step is
+    not ported); ``"auto"`` and False deal round-robin.
     """
+    from ..parallel.inference import on_device, replicas
+
     X, Y = plan.slide_dims
     S = plan.supertile
     completed = completed if completed is not None else set()
+    devices = [torch.device(d) for d in devices]
+    n_dev = len(devices)
     if spatial_shard is True:
-        # one device: sp is never possible, and an explicit True must not
-        # silently run something else
-        raise ValueError(
-            f"spatial_shard=True needs >1 device and (supertile + patch_"
-            f"size) % n_devices == 0; got 1 device(s), padded tile "
-            f"{S + 2 * halo}. Use spatial_shard='auto' for automatic "
-            f"fallback.")
+        if n_dev < 2 or (S + 2 * halo) % n_dev:
+            # an explicit True must not silently run something else
+            raise ValueError(
+                f"spatial_shard=True needs >1 device and (supertile + patch_"
+                f"size) % n_devices == 0; got {n_dev} device(s), padded tile "
+                f"{S + 2 * halo}. Use spatial_shard='auto' for automatic "
+                f"fallback.")
+        raise NotImplementedError(
+            f"spatial_shard=True (one supertile over {n_dev} devices) is not "
+            f"ported to PyTorch yet (ROADMAP.md §A item 6, multi-device: "
+            f"the spatial halo-exchange layer); spatial_shard='auto' deals "
+            f"supertiles round-robin over the devices and gives the same "
+            f"maps")
     todo = [(gi, g) for gi, g in enumerate(plan.groups)
             if gi not in completed]
+    vars_on = replicas(variables_tuple, devices)
 
     @functools.lru_cache(maxsize=None)
-    def get_steps(b):
+    def get_steps(dev, b):
         return build_model_tile_steps(
             bundles, tta_full, b, halo, compute_dtype=compute_dtype,
-            faithful_tta=faithful_tta, device=device)[:2]
+            faithful_tta=faithful_tta, device=dev)[:2]
 
     # square compute buckets (TTA rotations need square tiles), aligned to
     # the models' /32 stride tree like the supertile itself
@@ -219,7 +246,7 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
     def stage(name):
         return timer.stage(name) if timer else nullcontext()
 
-    def flush(mean, var, ready, gi, g, region, wx0, wy0):
+    def flush(mean, var, ready, gi, g, region, wx0, wy0, dev):
         # mean/var cover the supertile window starting at (wx0, wy0): the
         # full tile by default, the bbox bucket under bbox_compute
         nonlocal done
@@ -260,11 +287,13 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
             # after the completion mark: a crash mid-CRF resumes into the
             # engine's post-pass instead of re-inferring the tile
             with stage("crf"):
-                crf_cb(g, region[halo:halo + S, halo:halo + S])
+                crf_cb(g, region[halo:halo + S, halo:halo + S], dev)
 
-    with ThreadPoolExecutor(2) as flusher:
+    with ThreadPoolExecutor(max(2, n_dev)) as flusher:
         pending = []
-        for gi, g in todo:
+        for i, (gi, g) in enumerate(todo):
+            k = i % n_dev
+            dev = devices[k]
             ox, oy = g.origin
             # tissue-bbox compute window (a bucketed square with the same
             # halo write fringe the flush covers); the full tile otherwise
@@ -286,10 +315,10 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
                                            (S + 2 * halo, S + 2 * halo))
             sub = region[wy0:wy0 + b + 2 * halo, wx0:wx0 + b + 2 * halo]
             tile_xyc = np.transpose(sub, (1, 0, 2))
-            steps, combine = get_steps(b)
-            with stage("infer"):
+            steps, combine = get_steps(dev, b)
+            with stage("infer"), on_device(dev):
                 sums, sqs = [], []
-                for step, v in zip(steps, variables_tuple):
+                for step, v in zip(steps, vars_on[k]):
                     s, q = step(v, tile_xyc)
                     sums.append(s)
                     sqs.append(q)
@@ -299,9 +328,10 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
                     ready = torch.cuda.Event()
                     ready.record()
             pending.append(flusher.submit(flush, mean, var, ready, gi, g,
-                                          region, wx0, wy0))
-            # each pending result pins device and host buffers
-            while len(pending) > 2:
+                                          region, wx0, wy0, dev))
+            # each pending result pins device and host buffers: about two
+            # supertiles per device in flight
+            while len(pending) > 2 * n_dev:
                 pending.pop(0).result()
         for fut in pending:
             fut.result()

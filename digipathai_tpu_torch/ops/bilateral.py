@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import NamedTuple
 
 import torch
@@ -44,9 +43,6 @@ SMEM_TWO_BLOCKS = 115_712  # ... and leave room for a second on the SM
 #: the card's streaming multiprocessors (H100 SXM)
 SMS = 132
 LOG2E = 1.0 / math.log(2.0)
-
-#: tile mode refines two supertiles at once, one per flusher thread
-_COUNT_LOCK = threading.Lock()
 
 
 class BilateralPlan(NamedTuple):
@@ -168,8 +164,7 @@ def bilateral_message(q, image, sigma_xy: float, sigma_rgb: float,
                 raise RuntimeError(
                     f"bilateral_message: kernel launch failed with CUDA error "
                     f"{rc} (H={h} W={w} L={n_labels} r={radius} plan {plan})")
-            with _COUNT_LOCK:
-                bilateral_message.launches += 1
+            _build.count_launch(bilateral_message)
     return out
 
 

@@ -277,7 +277,7 @@ def launch(x, ops: ConvOperands, *, relu, out, part=None, plan=None):
         raise RuntimeError(f"fused_conv3x3: kernel launch failed with CUDA "
                            f"error {rc} (N={n} H={h} W={w} C={c} F={ops.f} "
                            f"plan {plan})")
-    fused_conv3x3.launches += 1
+    _build.count_launch(fused_conv3x3)
     return out
 
 

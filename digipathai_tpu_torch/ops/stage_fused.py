@@ -179,7 +179,7 @@ def launch(y, opa, opb, skip, *, relu, out, a, part=None, plans=None):
         raise RuntimeError(
             f"fused_up_stage: kernel launch failed with CUDA error {rc} "
             f"(N={n} Hh={hh} Wh={wh} C={c} Cs={cs} F={f})")
-    fused_up_stage.launches += 1
+    _build.count_launch(fused_up_stage)
     return out
 
 

@@ -93,3 +93,10 @@ def all_hosts_total(value: float) -> float:
                      device="cuda" if dist.get_backend() == "nccl" else "cpu")
     dist.all_reduce(t)
     return float(t.item())
+
+
+def shutdown() -> None:
+    """Destroy the process group (a no-op single-process): a process that
+    exits with its gloo group alive can abort in the group's threads."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -215,8 +215,11 @@ def test_quantized_and_fold_bn_run(small_slide, tmp_path, monkeypatch, kw,
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"data_parallel": 2}, "multi-device",
-                 id="kw4-multi-device"),
+    # data_parallel=2 runs now (tests/test_torch_parallel.py); what is left
+    # of multi-device is the spatially sharded tile step
+    pytest.param({"data_parallel": 2, "device": ["cpu", "cpu"],
+                  "inference_mode": "tile", "spatial_shard": True},
+                 "multi-device", id="kw4-multi-device"),
 ])
 def test_unsupported_kwargs_raise(synthetic_slide, tmp_path, monkeypatch, kw,
                                   item):
@@ -224,8 +227,8 @@ def test_unsupported_kwargs_raise(synthetic_slide, tmp_path, monkeypatch, kw,
 
     monkeypatch.setenv("DPAI_CACHE", str(tmp_path))
     with pytest.raises(NotImplementedError, match=item):
-        getSegmentation(synthetic_slide[0], **{"model": "oracle", **kw},
-                        device="cpu")
+        getSegmentation(synthetic_slide[0], **{"model": "oracle",
+                                               "device": "cpu", **kw})
 
 
 def test_cuda_without_gpu_raises(synthetic_slide, tmp_path, monkeypatch):
@@ -282,7 +285,8 @@ for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
              "models.inception_unet", "models.deeplabv3",
              "models.keras_names", "models.unet_decoder",
              "models.convert_h5", "models.fold_bn", "models.quant",
-             "training.losses", "training.train", "parallel.distributed"):
+             "training.losses", "training.train", "parallel.distributed",
+             "parallel.inference", "ops.roi", "utils.metrics", "utils.viz"):
     assert "digipathai_tpu_torch." + name in names, name
 import torch
 from digipathai_tpu_torch.models import registry

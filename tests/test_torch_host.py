@@ -6,7 +6,10 @@ copies to the originals byte for byte.  Each check runs twice, with both
 sides pinned to the same TIFF backend: the pure Python one, and the native
 libtiff one (the port's copy of ``dpai_tiff.cpp``, built on first use,
 against the JAX package's library), which skips where either library cannot
-be built or loaded.
+be built or loaded.  The numpy-only modules (``ops/roi.py``,
+``utils/metrics.py``, ``utils/viz.py``) are held to the originals byte for
+byte, and the port's two slide-level examples are run in an interpreter
+that must load no JAX module.
 """
 
 from wsgiref.util import setup_testing_defaults
@@ -137,3 +140,78 @@ def _check_write_pyramid(tmp_path):
         j_write(str(a), img, compression=comp, quality=90, mpp=0.5)
         t_write(str(b), img, compression=comp, quality=90, mpp=0.5)
         assert b.read_bytes() == a.read_bytes(), comp
+
+
+@pytest.mark.parametrize("module", ["ops/roi.py", "utils/metrics.py",
+                                    "utils/viz.py"])
+def test_numpy_modules_are_byte_identical_copies(module):
+    """The numpy-only modules the port copied (cv2 and matplotlib imported
+    inside their functions) are the originals byte for byte."""
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    want = (repo / "digipathai_tpu" / module).read_bytes()
+    assert (repo / "digipathai_tpu_torch" / module).read_bytes() == want
+
+
+def test_copied_metrics_and_roi_agree(tmp_path):
+    """The copies compute what the originals do on the same masks."""
+    from digipathai_tpu.ops import roi as jroi
+    from digipathai_tpu.utils import metrics as jm
+    from digipathai_tpu_torch.ops import roi as troi
+    from digipathai_tpu_torch.utils import metrics as tm
+    from digipathai_tpu_torch.utils import viz
+
+    rng = np.random.default_rng(4)
+    a = rng.random((64, 48)) > 0.6
+    b = rng.random((64, 48)) > 0.5
+    assert tm.dice(a, b) == jm.dice(a, b)
+    assert tm.jaccard(a, b) == jm.jaccard(a, b)
+    m = np.zeros((64, 64), np.uint8)
+    m[5:20, 8:30] = 1
+    m[40:60, 35:50] = 1
+    assert troi.get_bboxes(m) == jroi.get_bboxes(m)
+    np.testing.assert_array_equal(troi.get_all_bbox_masks(m, 2),
+                                  jroi.get_all_bbox_masks(m, 2))
+    png = tmp_path / "v.png"
+    assert viz.imsave(str(png), m * 255, viz.overlay_mask(
+        np.full((64, 64, 3), 200, np.uint8), m)) == str(png)
+    assert png.stat().st_size > 0
+
+
+def test_examples_stand_alone(tmp_path):
+    """Both slide-level examples of the port run on the CPU in a fresh
+    interpreter and load no jax, flax or digipathai_tpu module."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    d = tmp_path / "slides"
+    d.mkdir()
+    fx.make_synthetic_slide(str(d / "s.tiff"), 384, 256, seed=9)
+    code = f"""
+import importlib.util, sys
+def run(name, argv):
+    spec = importlib.util.spec_from_file_location(
+        name, {str(repo / "examples")!r} + "/" + name + ".py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(argv) == 0
+run("batch_segment_torch", [{str(d)!r}, "--quick", "--model", "oracle",
+                            "--device", "cpu"])
+run("run_segmentation_torch", [{str(d / "s.tiff")!r}, "--models", "oracle",
+                               "--out", {str(tmp_path / "out")!r},
+                               "--patch", "128", "--stride", "128",
+                               "--device", "cpu"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "digipathai_tpu"))
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=str(repo), DPAI_OFFLINE="1",
+               DPAI_CACHE=str(tmp_path / "cache"), OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "all hosts segmented 1 slides" in r.stdout
