@@ -105,18 +105,36 @@ Phases, in order; any failure raises and the script exits non-zero:
              repeated on ["cuda:0", "cuda:1"] and, with more than two, on
              device="cuda" with data_parallel=True (every card);
              otherwise one line says why not;
+5b. sp     - the spatially sharded tile step (one supertile over D
+             strips, engine/tile_infer.py::build_tile_step_sp) against the
+             one-device step on the same 4352^2 uint8 tile: dense
+             (fused_stages=5) and the quick=False ensemble (DeepLab at
+             aspp_pool_window=256) in bf16 on ["cuda:0"] * 2 and * 4
+             (max|dmean| and max|dvar|, bound 0.02; mask pixels flipped
+             at 0.3; launches exactly D x the one-device step's, 58 conv
+             and 5 stage per strip for dense; both steps' times), then
+             dense in f32 with TF32 off at a 1152^2 tile over 2, 3 and 4
+             strips (bound 1e-5); then the engine on phase 5's slide (2
+             tissue supertiles), in turns with serial runs: dense tile mode
+             with crf=True on device=["cuda:0"] * 4, data_parallel=4,
+             spatial_shard="auto" (which shards: 2 < 4), and the ensemble
+             with spatial_shard=True on ["cuda:0", "cuda:0"], each held to
+             the serial run (bound 0.02, no mask pixel changed away from
+             the threshold) with its launches, wall and stages;
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
              crf=1, then with inference_mode=tile&crf=1 on an engine with
              fused_stages=5, then with quick=0 (the ensemble), each polled
              to Done, then the mask's .dzi and one mask tile.
 
 ``python3 chip_smoke.py --cards`` (a host with two or more cards) runs
-phases 1, 2 and of 5a only the serial references and the runs across
-cards, then prints the card's name and power limit and the last line.
+phases 1, 2 and of 5a and 5b only the serial references and the runs
+across cards (5b: the step with a strip per card on two cards and on every
+card, f32 on every card, and the engine with spatial_shard=True on each),
+then prints the card's name and power limit and the last line.
 
 Each main path runs with every launch count set to 0 just before it and
-read just after; the ``kernels`` line's ``launches`` add phase 5a's runs
-to the ensemble's.  Prints a JSON line of per-kernel results, the card's name
+read just after; the ``kernels`` line's ``launches`` add phase 5a's and
+5b's runs to the ensemble's.  Prints a JSON line of per-kernel results, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits non-zero before printing any result.
 """
@@ -230,6 +248,13 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 # grid-dp against the serial run, f32 maps: only the overlap-add's order
 # differs (each shard's batch is one of the serial run's batches of 32)
 DP_BOUND = 1e-5
+# the spatially sharded step against the one-device step, bf16: each
+# strip's convs take their own plans (split-K) and cuDNN algorithms, so a
+# rounding moves per conv, as MODEL_BOUND; in f32 with TF32 off only the
+# summation order differs (tests/test_torch_spatial.py's bound)
+SP_BOUND = 0.02
+SP_F32_BOUND = 1e-5
+SP_F32_SIDE = 1024 + 2 * 64  # the f32 check's reduced tile
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -556,8 +581,8 @@ def kernels_conv(state):
                                   "times its launches; ms kernel-only (CUDA "
                                   "graph), wrapper_ms per call with "
                                   "operands prepared beforehand; launches: "
-                                  "the ensemble's patch run and phase "
-                                  "5a's runs"}
+                                  "the ensemble's patch run and phases "
+                                  "5a's and 5b's runs"}
 
 
 def stage_inputs(n, hh, wh, c, cs, f, dtype, seed):
@@ -667,7 +692,7 @@ def kernels_stage(state):
                                    "graph), wrapper_ms per call on the raw "
                                    "parameters (operands prepared in the "
                                    "call); launches: the ensemble's tile "
-                                   "run and phase 5a's runs"}
+                                   "run and phases 5a's and 5b's runs"}
 
 
 def bilateral_work(h, w, n_labels, r):
@@ -752,7 +777,8 @@ def kernels_bilateral(state):
                                        "in one CUDA graph), wrapper_ms one "
                                        "call with its host work; launches: "
                                        "the ensemble's tile run with "
-                                       "crf=True and phase 5a's runs"}
+                                       "crf=True and phases 5a's and 5b's "
+                                       "runs"}
 
 
 def phase_model(state):
@@ -2027,6 +2053,66 @@ def engine_maps(slide_path):
         one("maskbin", np.uint8)
 
 
+def engine_run(path, out_dir, tag, device, n, added, **kw):
+    """One getSegmentation of the dense model (or, with ``quick=False``,
+    the ensemble) on ``device`` with ``data_parallel=n``, every launch
+    count set to 0 just before it and added to ``added`` after it:
+    (shards, status, progress calls, wall, launches)."""
+    import torch
+
+    import digipathai_tpu_torch as dpt
+
+    outs = {k: os.path.join(out_dir, f"{tag}-{k}.tiff")
+            for k in ("probs", "mask", "uncertainty")}
+    status, done = {}, []
+    reset_launches()
+    t0 = time.time()
+    mask = dpt.getSegmentation(
+        path, probs_path=outs["probs"], mask_path=outs["mask"],
+        uncertainty_path=outs["uncertainty"], status=status,
+        model="dense", mode="colon", device=device, data_parallel=n,
+        progress_cb=lambda k, total: done.append(k), **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = read_launches()
+    for k in added:
+        added[k] += got[k]
+    if mask.shape != SLIDE:
+        raise AssertionError(f"{tag}: mask {mask.shape}")
+    shards = torch.cuda.device_count() if n is True else n
+    return shards, status, len(done), wall, got
+
+
+def held(path, refs, tag, kind, bound):
+    """The maps of the last run on ``path`` against the first run of
+    ``kind`` (which becomes the reference when there is none yet):
+    max|dp| of the mean and variance maps within ``bound`` (0: bit for
+    bit) and no mask pixel changed where the reference's mean is more than
+    ``bound`` from the threshold."""
+    import numpy as np
+
+    mean, var, mask = engine_maps(path)
+    if kind not in refs:
+        refs[kind] = mean, var, mask
+        return "the serial reference"
+    ref = refs[kind]
+    err = max(float(np.abs(mean - ref[0]).max()),
+              float(np.abs(var - ref[1]).max()))
+    flips = int((mask != ref[2]).sum())
+    near = np.abs(ref[0] - 0.3) <= bound  # THRESHOLD = 0.3
+    sure_flips = int(((mask != ref[2]) & ~near).sum())
+    ok = (err == 0.0 and flips == 0) if bound == 0 else (
+        err <= bound and sure_flips == 0)
+    if not ok:
+        raise AssertionError(f"{tag}: max|dp| {err}, {flips} mask "
+                             f"pixels changed ({sure_flips} away from "
+                             f"the threshold)")
+    if bound == 0:
+        return "maps and mask bit for bit the serial run's"
+    return (f"against the serial run max|dp| {err:.3e} (bound "
+            f"{bound}), {flips} mask pixels changed")
+
+
 def dp_dispatch(state):
     """The sharded step at full width (DenseNet121-U-Net, bf16, two shards
     of 32 256^2 patches on cuda:0): median seconds per global batch of 64
@@ -2099,7 +2185,6 @@ def phase_dp(state, one_card=True):
     """5a: grid-dp and the tile round-robin against serial runs of the
     same slide, taken in turns.  ``one_card=False`` (``--cards``) runs only
     the serial references and the runs across cards."""
-    import numpy as np
     import torch
 
     import digipathai_tpu_torch as dpt
@@ -2109,7 +2194,7 @@ def phase_dp(state, one_card=True):
     os.makedirs(d)
     path = state.get("engine_slide")
     if path is None:
-        path = os.path.join(d, "smoke-slide.tiff")
+        path = state["engine_slide"] = os.path.join(d, "smoke-slide.tiff")
         make_synthetic_slide(path, SLIDE[0], SLIDE[1], seed=0)
     if one_card:
         dp_dispatch(state)
@@ -2121,51 +2206,7 @@ def phase_dp(state, one_card=True):
     refs = {}
 
     def run(tag, device, n, **kw):
-        """One getSegmentation on ``device`` with ``data_parallel=n``:
-        (shards, status, progress calls, wall, launches)."""
-        outs = {k: os.path.join(d, f"{tag}-{k}.tiff")
-                for k in ("probs", "mask", "uncertainty")}
-        status, done = {}, []
-        reset_launches()
-        t0 = time.time()
-        mask = dpt.getSegmentation(
-            path, probs_path=outs["probs"], mask_path=outs["mask"],
-            uncertainty_path=outs["uncertainty"], status=status,
-            model="dense", mode="colon", device=device, data_parallel=n,
-            progress_cb=lambda k, total: done.append(k), **kw)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        got = read_launches()
-        for k in added:
-            added[k] += got[k]
-        if mask.shape != SLIDE:
-            raise AssertionError(f"{tag}: mask {mask.shape}")
-        shards = torch.cuda.device_count() if n is True else n
-        return shards, status, len(done), wall, got
-
-    def held(tag, kind, exact):
-        """The last run's maps against the first run of ``kind`` (which
-        becomes the reference when there is none yet)."""
-        mean, var, mask = engine_maps(path)
-        if kind not in refs:
-            refs[kind] = mean, var, mask
-            return "the serial reference"
-        ref = refs[kind]
-        err = max(float(np.abs(mean - ref[0]).max()),
-                  float(np.abs(var - ref[1]).max()))
-        flips = int((mask != ref[2]).sum())
-        near = np.abs(ref[0] - 0.3) <= DP_BOUND  # THRESHOLD = 0.3
-        sure_flips = int(((mask != ref[2]) & ~near).sum())
-        ok = (err == 0.0 and flips == 0) if exact else (
-            err <= DP_BOUND and sure_flips == 0)
-        if not ok:
-            raise AssertionError(f"{tag}: max|dp| {err}, {flips} mask "
-                                 f"pixels changed ({sure_flips} away from "
-                                 f"the threshold)")
-        if exact:
-            return "maps and mask bit for bit the serial run's"
-        return (f"against the serial run max|dp| {err:.3e} (bound "
-                f"{DP_BOUND}), {flips} mask pixels changed")
+        return engine_run(path, d, tag, device, n, added, **kw)
 
     def patch_run(kind, device, n):
         """Dense (``kind="dense"``, 68 conv launches per shard batch) or
@@ -2183,7 +2224,8 @@ def phase_dp(state, one_card=True):
             raise AssertionError(f"{kind} patch on {device} x {shards}: "
                                  f"launches {got}, want {want} ({nb} global "
                                  f"batches, planned {batches})")
-        said = held(f"{kind} patch on {device}", kind, exact=False)
+        said = held(path, refs, f"{kind} patch on {device}", kind,
+                    DP_BOUND)
         log(f"[dp] {kind} patch mode on {device}, data_parallel={n} "
             f"({shards} shard(s)): {nb} global batches of {shards * BATCH}, "
             f"launches {got}; {said}; wall {wall:.3f} s = "
@@ -2193,16 +2235,18 @@ def phase_dp(state, one_card=True):
 
     def tile_run(device, n):
         """Dense tile mode with fused_stages=5 and crf=True, supertiles
-        dealt round-robin, bit for bit the serial run."""
+        dealt round-robin (``spatial_shard=False``: on four cards "auto"
+        would shard the slide's two supertiles, phase 5b's path), bit for
+        bit the serial run."""
         shards, status, ng, wall, got = run(
             f"tile-{n}", device, n, inference_mode="tile", fused_stages=5,
-            crf=True)
+            crf=True, spatial_shard=False)
         want = {"fused_conv3x3": 58 * n_tiles, "fused_up_stage": 5 * n_tiles,
                 "bilateral_message": n_iters * n_tiles}
         if ng != n_tiles or got != want:
             raise AssertionError(f"tile on {device} x {shards}: launches "
                                  f"{got}, want {want} ({ng} of {n_tiles})")
-        said = held(f"tile crf on {device}", "tile", exact=True)
+        said = held(path, refs, f"tile crf on {device}", "tile", 0)
         log(f"[dp] dense tile mode fused_stages=5 crf=True on {device}, "
             f"data_parallel={n} ({shards} shard(s)): {n_tiles} supertiles "
             f"round-robin, launches {got}; {said}; wall {wall:.3f} s; "
@@ -2245,9 +2289,207 @@ def phase_dp(state, one_card=True):
 
 
 def phase_cards(state):
-    """5a with ``--cards``: the serial references and the runs across
-    cards only."""
+    """5a and 5b with ``--cards``: the serial references and the runs
+    across cards only."""
     phase_dp(state, one_card=False)
+    phase_sp(state, one_card=False)
+
+
+def sp_models(kind, dtype):
+    """(bundles, seeded modules on cuda:0) of the dense model alone
+    (``kind="dense"``) or the quick=False ensemble, as tile mode builds
+    them: the U-Nets with fused_stages=5, DeepLab with
+    aspp_pool_window=256."""
+    from digipathai_tpu_torch.models.registry import build_model
+
+    names = ["dense"] if kind == "dense" else ["dense", "inception",
+                                               "deeplabv3"]
+    bundles, mods = [], []
+    for i, name in enumerate(names):
+        kw = ({"aspp_pool_window": PATCH} if name == "deeplabv3"
+              else {"fused_stages": 5})
+        bundles.append(build_model(name, dtype=dtype, **kw))
+        mods.append(bundles[-1].init(PATCH, seed=i).cuda())
+    return bundles, mods
+
+
+def sp_step(state, tag, bundles, mods, devices, tile_u8, halo, bound, ref):
+    """The spatially sharded tile step on ``devices`` against the
+    one-device step (``build_model_tile_steps`` and ``combine`` on cuda:0)
+    on the same uint8 tile: max|dmean| and max|dvar| within ``bound``,
+    mask pixels flipped at 0.3, launches exactly D x the one-device
+    step's, and both steps' times (CUDA events, the one-device step taken
+    before and after).  ``ref`` caches the one-device step per tile;
+    returns it."""
+    import torch
+
+    from digipathai_tpu_torch.engine.tile_infer import (
+        build_model_tile_steps, build_tile_step_sp)
+    from digipathai_tpu_torch.parallel.inference import (make_dp_devices,
+                                                         replicas)
+
+    side = tile_u8.shape[0]
+    dtype = mods[0].dtype
+    if ref is None:
+        steps, combine, _ = build_model_tile_steps(
+            bundles, ["DEFAULT"], side - 2 * halo, halo, compute_dtype=dtype,
+            device="cuda:0")
+
+        def serial():
+            sums = [st(m, tile_u8) for st, m in zip(steps, mods)]
+            return combine([a for a, _ in sums], [b for _, b in sums])
+
+        reset_launches()
+        mean, var = serial()
+        torch.cuda.synchronize()
+        ref = {"mean": mean, "var": var, "launches": read_launches(),
+               "fn": serial}
+    devices = make_dp_devices(None, devices)
+    vars_on = replicas(mods, devices)
+    step = build_tile_step_sp(bundles, ["DEFAULT"], side - 2 * halo, halo,
+                              devices, compute_dtype=dtype)
+    reset_launches()
+    mean, var = step(vars_on, tile_u8)
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = {k: len(devices) * v for k, v in ref["launches"].items()}
+    if got != want:
+        raise AssertionError(f"sp {tag} on {len(devices)} strips: launches "
+                             f"{got}, want {want}")
+    t_serial = time_ms(ref["fn"], reps=3, warmup=1)
+    t_sp = time_ms(lambda: step(vars_on, tile_u8), reps=3, warmup=1)
+    t_serial = (t_serial + time_ms(ref["fn"], reps=3, warmup=1)) / 2
+    dm = float((mean - ref["mean"]).abs().max())
+    dv = float((var - ref["var"]).abs().max())
+    flips = int(((mean > 0.3) != (ref["mean"] > 0.3)).sum())
+    finite = bool(torch.isfinite(mean).all() and torch.isfinite(var).all())
+    names = sorted({str(dv_) for dv_ in devices})
+    log(f"[sp] {tag} {side}^2 {str(dtype)[6:]} on {len(devices)} strips "
+        f"({', '.join(names)}): max|dmean| {dm:.3e} max|dvar| {dv:.3e} "
+        f"(bound {bound}), {flips} mask pixels flipped at 0.3; launches "
+        f"{got} (one-device step {ref['launches']}); step {t_sp:.2f} ms, "
+        f"one-device step {t_serial:.2f} ms ({t_sp / t_serial:.3f}x) "
+        f"| {state['smi']}")
+    if not finite or tuple(mean.shape) != (side - 2 * halo,) * 2 or \
+            dm > bound or dv > bound:
+        raise AssertionError(f"sp {tag}: max|dmean| {dm}, max|dvar| {dv}, "
+                             f"finite {finite}, shape {tuple(mean.shape)}")
+    step.close()
+    del vars_on, step, mean, var
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_sp(state, one_card=True):
+    """5b: the spatially sharded tile step (one supertile over D strips)
+    against the one-device step, then the engine taking it on phase 5's
+    slide, in turns with serial runs.  One card: strips on cuda:0; with
+    ``one_card=False`` (``--cards``) a strip per card on two cards and on
+    every card."""
+    import numpy as np
+    import torch
+
+    import digipathai_tpu_torch as dpt
+    from digipathai_tpu_torch.engine.planner import plan_patches
+
+    cards = torch.cuda.device_count()
+    if one_card:
+        layouts = [["cuda:0"] * 2, ["cuda:0"] * 4]
+    else:
+        layouts = [["cuda:0", "cuda:1"]] + ([[f"cuda:{i}" for i in range(
+            cards)]] if cards > 2 else [])
+    added = dict.fromkeys(read_launches(), 0)  # the engine runs' launches
+    rng = np.random.default_rng(10)
+    # the step alone: the 4352^2 tile (supertile 4096, halo 128) in bf16,
+    # dense and the ensemble; then dense in f32 with TF32 off at a reduced
+    # tile, over every strip count that splits it
+    tile = rng.integers(0, 256, (TILE_SIDE, TILE_SIDE, 3), np.uint8)
+    for kind in ("dense", "ensemble"):
+        bundles, mods = sp_models(kind, torch.bfloat16)
+        ref = None
+        for devices in layouts:
+            ref = sp_step(state, kind, bundles, mods, devices, tile, 128,
+                          SP_BOUND, ref)
+        del bundles, mods, ref
+        torch.cuda.empty_cache()
+    prev = no_tf32()
+    try:
+        bundles, mods = sp_models("dense", torch.float32)
+        small = rng.integers(0, 256, (SP_F32_SIDE, SP_F32_SIDE, 3), np.uint8)
+        ref = None
+        counts = [2, 3, 4] if one_card else [len(layouts[-1])]
+        for n in counts:
+            if SP_F32_SIDE % n:
+                continue
+            devices = (["cuda:0"] * n if one_card
+                       else [f"cuda:{i}" for i in range(n)])
+            ref = sp_step(state, "dense", bundles, mods, devices, small, 64,
+                          SP_F32_BOUND, ref)
+        del bundles, mods, ref
+        torch.cuda.empty_cache()
+    finally:
+        restore_tf32(prev)
+
+    # the engine on phase 5's slide: dense tile mode with crf=True, where
+    # "auto" shards (2 tissue supertiles, fewer than 4 devices), and the
+    # ensemble with spatial_shard=True; each sharded run's maps held to
+    # the serial run's, walls taken in turns
+    d = os.path.join(state["tmp"], "sp")
+    os.makedirs(d)
+    path = state.get("engine_slide")
+    if path is None:
+        path = state["engine_slide"] = os.path.join(d, "smoke-slide.tiff")
+        make_synthetic_slide(path, SLIDE[0], SLIDE[1], seed=0)
+    with dpt.Slide(path) as s:
+        n_tiles = len(plan_patches(s, patch=PATCH, stride=128,
+                                   batch=BATCH).groups)
+    refs, runs = {}, []
+
+    def tile_run(kind, device, n, **kw):
+        quick = crf = kind == "dense"
+        runs.append(kind)
+        shards, status, ng, wall, got = engine_run(
+            path, d, f"sp-{kind}-{len(runs)}", device, n, added, quick=quick,
+            crf=crf, inference_mode="tile", fused_stages=5, **kw)
+        strips = shards if kw.get("spatial_shard") in (True, "auto") else 1
+        want = {"fused_conv3x3": 58 * strips * n_tiles,
+                "fused_up_stage": (5 if quick else 10) * strips * n_tiles,
+                "bilateral_message": 10 * n_tiles if crf else 0}
+        if ng != n_tiles or got != want:
+            raise AssertionError(f"sp {kind} tile on {device} x {shards}: "
+                                 f"launches {got}, want {want} ({ng} of "
+                                 f"{n_tiles})")
+        said = held(path, refs, f"sp {kind} on {device}", kind, SP_BOUND)
+        log(f"[sp] {kind} tile mode fused_stages=5 crf={crf} on {device}, "
+            f"data_parallel={n}, {kw or 'serial'}: {n_tiles} supertiles, "
+            f"launches {got}; {said}; wall {wall:.3f} s; stages "
+            f"{status['timings']} | {state['smi']}")
+        return wall
+
+    serial = (["cuda:0"], 1)
+    if one_card:
+        for kind, dev, kw in (
+                ("dense", (["cuda:0"] * 4, 4), {"spatial_shard": "auto"}),
+                ("ensemble", (["cuda:0"] * 2, 2), {"spatial_shard": True})):
+            walls = [tile_run(kind, *serial), tile_run(kind, *dev, **kw),
+                     tile_run(kind, *dev, **kw), tile_run(kind, *serial)]
+            log(f"[sp] {kind} tile walls in turns, serial / sharded / "
+                f"sharded / serial on {dev[0]}: "
+                f"{' / '.join(f'{w:.3f}' for w in walls)} s | {state['smi']}")
+    else:
+        for kind in ("dense", "ensemble"):
+            walls = [tile_run(kind, *serial)]
+            for devices in layouts:
+                walls.append(tile_run(kind, devices, len(devices),
+                                      spatial_shard=True))
+            walls.append(tile_run(kind, *serial))
+            log(f"[sp] {kind} tile walls, serial / "
+                f"{' / '.join(str(len(v)) + ' cards' for v in layouts)} / "
+                f"serial: {' / '.join(f'{w:.3f}' for w in walls)} s | "
+                f"{state['smi']}")
+    launches = state.setdefault("launches", dict.fromkeys(added, 0))
+    for k, v in added.items():
+        launches[k] += v
 
 
 def profile_crf(state, slide_path, probs_path, supertile):
@@ -2429,7 +2671,7 @@ def main():
         return 1
     phases = (phase_device, phase_build, phase_kernels, phase_model,
               phase_weights, phase_fold, phase_quant, phase_train,
-              phase_engine, phase_dp, phase_server)
+              phase_engine, phase_dp, phase_sp, phase_server)
     if cards:
         phases = (phase_device, phase_build, phase_cards)
     state = {}

@@ -16,9 +16,10 @@ pyramid writes.  Inference runs in one of two modes:
 - tile mode (``engine/tile_infer.py``): one fully convolutional forward
   per tissue supertile plus a ``patch_size // 2`` halo, written straight
   into the maps; on D devices the supertiles are dealt round-robin, each
-  computed (and CRF-refined) on its device.  ``fused_stages`` runs the
-  U-Net decoders' last stages
-  (DenseNet's and Inception's) on the ``fused_up_stage`` kernel there.
+  computed (and CRF-refined) on its device, or each supertile is computed
+  by all D devices at once (``spatial_shard``, below).  ``fused_stages``
+  runs the U-Net decoders' last stages (DenseNet's and Inception's) on the
+  ``fused_up_stage`` kernel there.
   ``tile_local_aspp`` (default on) is not a layout rewrite: when
   ``supertile % patch_size == 0`` DeepLab is rebuilt with
   ``aspp_pool_window=patch_size`` and the same weights, so its ASPP pools
@@ -53,13 +54,16 @@ the first one.  A list may repeat a device; each entry is then a shard of
 its own.  One model replica is built per further shard once the weights
 are loaded, folded, quantized and calibrated (on the first device).  The
 resume key holds the global batch, so a dp run and a serial run never
-resume each other.  ``spatial_shard=True`` on more than one device (one
-supertile over all of them) raises ``NotImplementedError`` (ROADMAP.md §A
-item 6); ``"auto"`` deals supertiles round-robin, where JAX would shard a
-slide with fewer tissue supertiles than devices: the maps are the same,
-only the latency differs.  The TPU-only layout rewrites (``s2d_input``,
-``s2d_decoder``, ``wpack``, ``decoder_halo_crop``) are exact, so they are
-accepted and the canonical form runs.  The JAX package's binary head
+resume each other.  In tile mode ``spatial_shard`` picks the scheme by
+JAX's rule (``engine/tile_infer.py::run_tile_inference``): ``"auto"`` (the
+default) computes each supertile on all devices at once, its rows split
+over them (``build_tile_step_sp``), when the slide has fewer tissue
+supertiles left than devices and ``(supertile + patch_size) %
+n_devices == 0``, and deals supertiles round-robin otherwise; True always
+shards (``ValueError`` where it cannot), False never.  The TPU-only
+layout rewrites (``s2d_input``, ``s2d_decoder``, ``wpack``,
+``decoder_halo_crop``) are exact, so they are accepted and the canonical
+form runs.  The JAX package's binary head
 (``models/heads.py::binary_p1``) is a TPU layout rewrite that its engine
 never calls; it is not ported.
 """

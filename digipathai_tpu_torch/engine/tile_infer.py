@@ -12,15 +12,21 @@ Interior pixels match the patch-mode overlap-add up to the models'
 patch-border padding effects (pointwise models match exactly).  The maps
 are written directly (count = 1): supertiles do not overlap.
 
-Several devices: supertiles are independent, so they are dealt
-round-robin over the devices, each with a model replica of its own, and
-each result is flushed (and CRF-refined) by a writer pool.  Each
-supertile is computed as on one device, so the maps equal the serial
-run's bit for bit.  JAX also has a spatially sharded step (one supertile
-over all devices, ``build_tile_step_sp``) that ``spatial_shard="auto"``
-takes when a slide has fewer tissue supertiles than devices; it is not
-ported (ROADMAP.md §A item 6).  Here ``"auto"`` always deals round-robin:
-the maps are the same, only the latency of such a slide differs.
+Several devices, two schemes, chosen by ``spatial_shard`` as JAX
+chooses:
+
+- round-robin: supertiles are independent, so they are dealt over the
+  devices, each with a model replica of its own, and each result is
+  flushed (and CRF-refined) by a writer pool.  Each supertile is computed
+  as on one device, so the maps equal the serial run's bit for bit;
+- spatially sharded (``build_tile_step_sp``): ONE supertile on all
+  devices at once, its rows split into one strip per device, every model
+  run on the strips in lockstep through the row-halo exchange of
+  ``parallel/spatial.py``.  It lowers a slide's latency when the slide has
+  fewer tissue supertiles than devices, which would leave devices idle in
+  the round-robin.  The maps are the one-device step's up to summation
+  order: a strip's convs (their kernels' plans, cuDNN's algorithms) and
+  DeepLab's global mean add in another order.
 """
 
 from __future__ import annotations
@@ -110,17 +116,28 @@ def build_model_tile_steps(bundles: Sequence, tta_list: Sequence[str],
                     if ch:
                         p = p[:, ch:-ch, ch:-ch]
                     preds.extend(p.float())
-                s = sq = None
-                for p, chain in zip(preds, chains):
-                    inv = chain[-1] if chain else tta_ops.DEFAULT
-                    p = tta_ops.invert(p[None], inv)[0]
-                    s = p if s is None else s + p
-                    sq = p * p if sq is None else sq + p * p
-                return s, sq
+                return sum_predictions(preds, chains)
         return step
 
     n_preds = len(bundles) * len(chains)
+    return [make_step(b) for b in bundles], make_combine(n_preds), n_preds
 
+
+def sum_predictions(preds, chains):
+    """(sum, sum of squares) of one model's per-chain predictions (each
+    (H, W), halo cropped), each inverted by its chain's last transform."""
+    s = sq = None
+    for p, chain in zip(preds, chains):
+        inv = chain[-1] if chain else tta_ops.DEFAULT
+        p = tta_ops.invert(p[None], inv)[0]
+        s = p if s is None else s + p
+        sq = p * p if sq is None else sq + p * p
+    return s, sq
+
+
+def make_combine(n_preds: int):
+    """``combine(sums, sqs) -> (mean, max(var, 0))`` over the per-model
+    lists of ``sum_predictions``, summed in model order."""
     def combine(sums, sqs):
         s, q = sums[0], sqs[0]
         for a, b in zip(sums[1:], sqs[1:]):
@@ -130,7 +147,64 @@ def build_model_tile_steps(bundles: Sequence, tta_list: Sequence[str],
         var = q / n_preds - mean * mean
         return mean, torch.clamp(var, min=0.0)
 
-    return [make_step(b) for b in bundles], combine, n_preds
+    return combine
+
+
+def build_tile_step_sp(bundles: Sequence, tta_list: Sequence[str],
+                       tile: int, halo: int, devices,
+                       compute_dtype=torch.bfloat16,
+                       faithful_tta: bool = False):
+    """The spatially sharded tile step: ONE supertile on all ``devices``
+    (JAX's ``build_tile_step_sp``, whose ``sp`` mesh axis is the device
+    list here; a list may repeat a device).
+
+    Returns ``step(vars_on, tile_u8) -> (mean, var)`` on ``devices[0]``;
+    ``vars_on[k]`` is the list of modules (one per bundle) on
+    ``devices[k]``, as ``parallel/inference.py::replicas`` makes it, and
+    ``tile_u8`` the (tile + 2*halo)^2 x 3 uint8 tile in (x, y, c)
+    orientation.  Each TTA chain is applied to the whole normalized tile
+    on ``devices[0]``; its rows are split into one strip per device
+    (``parallel/spatial.py::shard_rows``), every strip runs its replica in
+    lockstep on the step's strip threads (``StripThreads``, which live as
+    long as the step: ``step.close()`` ends them), and the strips'
+    predictions come back to ``devices[0]``, where they are cropped,
+    inverted, summed per model and combined as the one-device
+    ``build_model_tile_steps`` does.
+    """
+    import weakref
+
+    from ..parallel import spatial
+
+    chains = tta_ops.effective_transforms(tta_list, faithful=faithful_tta)
+    devices = [torch.device(d) for d in devices]
+    combine = make_combine(len(bundles) * len(chains))
+    threads = spatial.StripThreads(len(devices))
+
+    def step(vars_on, tile_u8):
+        with torch.inference_mode():
+            x = normalize_patches(_to_device(tile_u8, devices[0])[None],
+                                  dtype=compute_dtype)
+            sums, sqs = [], []
+            for i, bundle in enumerate(bundles):
+                replicas = [v[i] for v in vars_on]
+                preds = []
+                for chain in chains:
+                    shards = spatial.shard_rows(
+                        tta_ops.apply_chain(x, chain), devices)
+                    p = spatial.unshard(threads.run(
+                        bundle.apply_p1, replicas, shards), devices[0])
+                    ch = (p.shape[-1] - tile) // 2
+                    if ch:
+                        p = p[:, ch:-ch, ch:-ch]
+                    preds.append(p[0].float())
+                s, q = sum_predictions(preds, chains)
+                sums.append(s)
+                sqs.append(q)
+            return combine(sums, sqs)
+
+    step.close = threads.close
+    weakref.finalize(step, threads.close)
+    return step
 
 
 def fetch_window(coords_valid, ox, oy, S, halo, buckets, wx0, wy0,
@@ -193,10 +267,14 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
     keeping the same halo context, so written pixels keep the same
     receptive-field semantics.
 
-    ``spatial_shard``: JAX's conditions.  True raises ``ValueError`` where
-    JAX cannot shard (one device, or ``(S + 2*halo) % D != 0``) and
-    ``NotImplementedError`` where it would (the spatially sharded step is
-    not ported); ``"auto"`` and False deal round-robin.
+    ``spatial_shard`` chooses the scheme by JAX's rule: sharding is
+    possible when D > 1 and ``(S + 2*halo) % D == 0``; True then shards
+    (and raises JAX's ``ValueError`` where it is not possible), ``"auto"``
+    shards when fewer supertiles are left than devices, False deals
+    round-robin.  Sharded (``build_tile_step_sp``), each supertile is the
+    full tile (``bbox_compute`` does not apply), computed on all devices
+    with its result on ``devices[0]``; a flusher pool of 2 keeps at most 2
+    supertiles in flight, and ``crf_cb`` runs on ``devices[0]``.
     """
     from ..parallel.inference import on_device, replicas
 
@@ -205,22 +283,21 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
     completed = completed if completed is not None else set()
     devices = [torch.device(d) for d in devices]
     n_dev = len(devices)
-    if spatial_shard is True:
-        if n_dev < 2 or (S + 2 * halo) % n_dev:
-            # an explicit True must not silently run something else
-            raise ValueError(
-                f"spatial_shard=True needs >1 device and (supertile + patch_"
-                f"size) % n_devices == 0; got {n_dev} device(s), padded tile "
-                f"{S + 2 * halo}. Use spatial_shard='auto' for automatic "
-                f"fallback.")
-        raise NotImplementedError(
-            f"spatial_shard=True (one supertile over {n_dev} devices) is not "
-            f"ported to PyTorch yet (ROADMAP.md §A item 6, multi-device: "
-            f"the spatial halo-exchange layer); spatial_shard='auto' deals "
-            f"supertiles round-robin over the devices and gives the same "
-            f"maps")
     todo = [(gi, g) for gi, g in enumerate(plan.groups)
             if gi not in completed]
+    # sharding pays off when devices would otherwise idle (fewer supertiles
+    # than devices); the sharded axis must split the padded tile evenly
+    sp_possible = n_dev > 1 and (S + 2 * halo) % n_dev == 0
+    if spatial_shard is True and not sp_possible:
+        # an explicit True must not silently run something else
+        raise ValueError(
+            f"spatial_shard=True needs >1 device and (supertile + patch_"
+            f"size) % n_devices == 0; got {n_dev} device(s), padded tile "
+            f"{S + 2 * halo}. Use spatial_shard='auto' for automatic "
+            f"fallback.")
+    use_sp = sp_possible and (
+        spatial_shard is True
+        or (spatial_shard == "auto" and len(todo) < n_dev))
     vars_on = replicas(variables_tuple, devices)
 
     @functools.lru_cache(maxsize=None)
@@ -289,6 +366,46 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
             with stage("crf"):
                 crf_cb(g, region[halo:halo + S, halo:halo + S], dev)
 
+    def read(g):
+        ox, oy = g.origin
+        with stage("read"):
+            # tile + halo, (y, x, c); Slide zero-fills out of bounds
+            return slide.read_region((ox - halo, oy - halo), 0,
+                                     (S + 2 * halo, S + 2 * halo))
+
+    def submit(flusher, pending, mean, var, gi, g, region, wx0, wy0, dev,
+               depth):
+        ready = None
+        if mean.is_cuda:
+            with on_device(dev):
+                ready = torch.cuda.Event()
+                ready.record()
+        pending.append(flusher.submit(flush, mean, var, ready, gi, g,
+                                      region, wx0, wy0, dev))
+        # each pending result pins device and host buffers
+        while len(pending) > depth:
+            pending.pop(0).result()
+
+    if use_sp:
+        step_sp = build_tile_step_sp(
+            bundles, tta_full, S, halo, devices, compute_dtype=compute_dtype,
+            faithful_tta=faithful_tta)
+        try:
+            with ThreadPoolExecutor(2) as flusher:
+                pending = []
+                for gi, g in todo:
+                    region = read(g)
+                    with stage("infer"), on_device(devices[0]):
+                        mean, var = step_sp(vars_on,
+                                            np.transpose(region, (1, 0, 2)))
+                    submit(flusher, pending, mean, var, gi, g, region, 0, 0,
+                           devices[0], 2)
+                for fut in pending:
+                    fut.result()
+        finally:
+            step_sp.close()
+        return
+
     with ThreadPoolExecutor(max(2, n_dev)) as flusher:
         pending = []
         for i, (gi, g) in enumerate(todo):
@@ -309,10 +426,7 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
                 b = next(bk for bk in cbuckets if bk >= max(sx, sy))
                 wx0 = min(wx0, S - b)
                 wy0 = min(wy0, S - b)
-            with stage("read"):
-                # tile + halo, (y, x, c); Slide zero-fills out of bounds
-                region = slide.read_region((ox - halo, oy - halo), 0,
-                                           (S + 2 * halo, S + 2 * halo))
+            region = read(g)
             sub = region[wy0:wy0 + b + 2 * halo, wx0:wx0 + b + 2 * halo]
             tile_xyc = np.transpose(sub, (1, 0, 2))
             steps, combine = get_steps(dev, b)
@@ -323,15 +437,8 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
                     sums.append(s)
                     sqs.append(q)
                 mean, var = combine(sums, sqs)
-                ready = None
-                if mean.is_cuda:
-                    ready = torch.cuda.Event()
-                    ready.record()
-            pending.append(flusher.submit(flush, mean, var, ready, gi, g,
-                                          region, wx0, wy0, dev))
-            # each pending result pins device and host buffers: about two
-            # supertiles per device in flight
-            while len(pending) > 2 * n_dev:
-                pending.pop(0).result()
+            # about two supertiles per device in flight
+            submit(flusher, pending, mean, var, gi, g, region, wx0, wy0, dev,
+                   2 * n_dev)
         for fut in pending:
             fut.result()

@@ -13,7 +13,10 @@ size and a softmax in f32.
 DeepLab has no Pallas kernel in JAX: XLA computes its convs, depthwise
 convs and resizes.  Here they are ``F.conv2d`` (depthwise with
 ``groups=C``, dilated with ``dilation``), matmuls for the 1x1 convs, and
-``ops.resize.resize_bilinear_align_corners``.
+``ops.resize.resize_bilinear_align_corners``, each spatial op through
+``parallel/spatial.py`` (so the model also runs row-sharded; there the
+image pooling's global mean sums each strip in f32 and adds the sums in
+strip order).
 
 - **Padding.** ``entry_flow_conv1_1`` is flax SAME at stride 2: (0, 1) on
   an even side (``same_pad``).  The other stride-2 convs pad as the
@@ -52,11 +55,11 @@ layout rewrite: accepted, and the canonical form runs.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from ..ops.resize import resize_bilinear_align_corners
-from .unet_decoder import (BatchNorm, Conv, PreparedModule, conv1x1, nchw,
-                           nhwc, same_pad, torch_kernel)
+from ..parallel import spatial
+from ..parallel.spatial import resize_bilinear_align_corners
+from .unet_decoder import (BatchNorm, Conv, PreparedModule, conv1x1,
+                           same_pad, torch_kernel)
 
 __all__ = ["DeepLabV3Plus"]
 
@@ -132,7 +135,7 @@ class DeepLabV3Plus(PreparedModule):
         """A 1x1 conv (VALID: at stride 2 it takes every other pixel)."""
         if self._quantizes(name):
             return self._qconv(y, name, stride=stride, same=False)
-        return conv1x1(y[:, ::stride, ::stride], getattr(self, name))
+        return conv1x1(spatial.subsample(y, stride), getattr(self, name))
 
     def _conv3x3(self, y, name, stride=1):
         """A 3x3 conv with flax SAME padding (asymmetric at stride 2)."""
@@ -140,9 +143,8 @@ class DeepLabV3Plus(PreparedModule):
             return self._qconv(y, name, stride=stride)
         w = self._kernel(name)
         if stride == 1:
-            return nhwc(F.conv2d(nchw(y), w, padding=1))
-        return nhwc(F.conv2d(nchw(same_pad(y, 3, 3, stride)), w,
-                             stride=stride))
+            return spatial.conv2d(y, w, padding=1)
+        return spatial.conv2d(same_pad(y, 3, 3, stride), w, stride=stride)
 
     def _sep_conv_bn(self, y, prefix, stride=1, rate=1,
                      depth_activation=False):
@@ -151,8 +153,8 @@ class DeepLabV3Plus(PreparedModule):
         # ``rate`` on each side: dilated SAME at stride 1, and at stride 2
         # (rate 1 at output stride 16) the reference's (1, 1) before VALID
         name = f"{prefix}_depthwise"
-        y = nhwc(F.conv2d(nchw(y), self._kernel(name), stride=stride,
-                          padding=rate, dilation=rate, groups=y.shape[-1]))
+        y = spatial.conv2d(y, self._kernel(name), stride=stride,
+                           padding=rate, dilation=rate, groups=y.shape[-1])
         y = self._bn(y, name, depth_activation)
         name = f"{prefix}_pointwise"
         return self._bn(self._conv1x1(y, name), name, depth_activation)
@@ -182,7 +184,7 @@ class DeepLabV3Plus(PreparedModule):
 
     def _image_pooling(self, y):
         """The ASPP's image-pooling branch at the features' size."""
-        n, fh, fw_, c = y.shape
+        n, fh, fw_, c = spatial.shape(y)  # global: the check reads fh
         win = self.aspp_pool_window
         if win:
             fw = win // OUTPUT_STRIDE
@@ -190,14 +192,13 @@ class DeepLabV3Plus(PreparedModule):
                 raise ValueError(
                     f"aspp_pool_window {win} must divide the input size "
                     f"(features {fh}x{fw_}, window {fw})")
-            b4 = nhwc(F.avg_pool2d(nchw(y), fw, stride=fw))
+            b4 = spatial.avg_pool2d(y, fw, stride=fw)
         else:
-            b4 = y.float().mean(dim=(1, 2), keepdim=True).to(y.dtype)
+            b4 = spatial.global_mean(y)  # the same on every strip
         b4 = self._conv1x1_bn_relu(b4, "image_pooling")
         if win:
-            return b4.repeat_interleave(fw, dim=1).repeat_interleave(fw,
-                                                                     dim=2)
-        return resize_bilinear_align_corners(b4, (fh, fw_))
+            return spatial.repeat_interleave(b4, fw)
+        return resize_bilinear_align_corners(b4, (fh, fw_), replicated=True)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator = None) -> torch.Tensor:
@@ -208,7 +209,7 @@ class DeepLabV3Plus(PreparedModule):
                              "generator=")
         dt = self.dtype
         x = x.to(dt)
-        h, w = x.shape[1], x.shape[2]
+        _, h, w, _ = spatial.shape(x)
         y = self._bn(self._conv3x3(x, "entry_flow_conv1_1", stride=2),
                      "entry_flow_conv1_1", True)
         y = self._bn(self._conv3x3(y, "entry_flow_conv1_2"),
@@ -223,7 +224,7 @@ class DeepLabV3Plus(PreparedModule):
                            depth_activation=True)
 
         # ASPP
-        fh, fw = y.shape[1], y.shape[2]
+        _, fh, fw, _ = spatial.shape(y)
         branches = [self._image_pooling(y),
                     self._conv1x1_bn_relu(y, "aspp0")]
         for i, rate in enumerate(ATROUS_RATES):

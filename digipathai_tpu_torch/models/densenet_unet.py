@@ -35,18 +35,20 @@ form runs.  ``s2d_decoder`` keeps JAX's one side effect: it turns
 Submodules carry the Keras/flax names (``conv2_block1_1_conv``, ``conv2d_3``,
 ``batch_normalization_7``, ...) and parameters keep flax's layouts (HWIO
 kernels), so ``bridge.flax_to_torch`` is a name-to-name copy.  Activations
-stay NHWC-contiguous; the stem conv and the pools run on NCHW views of them.
+stay NHWC-contiguous; the stem conv and the pools run on NCHW views of them,
+and every spatial op goes through ``parallel/spatial.py`` (row sharded, a
+dense block runs on its strip and a halo as deep as its layers).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..ops import conv_fused
+from ..parallel import spatial
 from .keras_names import KerasNamer
 from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1, conv_same,
-                           decoder_calls, init_params, nchw, nhwc)
+                           decoder_calls, init_params)
 
 __all__ = ["DenseNet121UNet", "init_params", "kernel_calls"]
 
@@ -111,7 +113,15 @@ class DenseNet121UNet(KernelUNet):
 
     def _dense_block(self, x, n, name):
         """Dense block with its concat preallocated: layer i reads the first
-        C0 + 32 i channels and writes its 32 new ones after them."""
+        C0 + 32 i channels and writes its 32 new ones after them.  Row
+        sharded, the strip takes n rows of halo once and its n layers run
+        on it with no exchange (each 3x3 conv spoils one row at the
+        extended edges), then the block keeps the strip's own rows."""
+        x, keep = spatial.halo(x, n)
+        with spatial.local():
+            return keep(self._dense_layers(x, n, name))
+
+    def _dense_layers(self, x, n, name):
         dt = self.dtype
         nb, h, w, c = x.shape
         buf = x.new_empty(nb, h, w, c + n * self.growth)
@@ -133,7 +143,7 @@ class DenseNet121UNet(KernelUNet):
                 lambda: conv_fused.prepare(
                     kernel, None, None, None, *bn1.folded(), dtype=dt,
                     device=y.device))
-            buf[..., c:c + self.growth] = conv_fused.fused_conv3x3(
+            buf[..., c:c + self.growth] = spatial.fused_conv3x3(
                 y, ops, relu=False)
             c += self.growth
         return buf
@@ -155,17 +165,17 @@ class DenseNet121UNet(KernelUNet):
         conv = f"{name}_conv"
         y = (self._qconv(y, conv) if self._quantizes(conv)
              else conv1x1(y, getattr(self, conv)))
-        return nhwc(F.avg_pool2d(nchw(y), 2))
+        return spatial.avg_pool2d(y, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         k = self.conv1__conv.kernel.to(dt).permute(3, 2, 0, 1)
-        y = nhwc(F.conv2d(nchw(x), k, stride=2, padding=3))
+        y = spatial.conv2d(x, k, stride=2, padding=3)
         y = self.conv1__bn(y, relu=True)
         conv1 = y
         # zero pad == -inf pad here: the input is post-relu
-        y = nhwc(F.max_pool2d(nchw(y), 3, stride=2, padding=1))
+        y = spatial.max_pool2d(y, 3, stride=2, padding=1)
         skips = [conv1]
         dense_block = (self._dense_block_train if self.training
                        else self._dense_block)

@@ -22,6 +22,8 @@ and the U-Net decoder the DenseNet variant has
 - **SAME padding at stride 2 is asymmetric**: flax pads (0, 1) on an even
   side, where ``padding=1`` would pad (1, 1) and shift the grid; the
   stride-2 convs and max pools pad explicitly (``same_pad``).
+- **Spatial ops** (convs, pools, ``same_pad``) go through
+  ``parallel/spatial.py``, so the model also runs row-sharded.
 - **``quantized``** (``models/quant.py``) drops the packed heads, as JAX
   does: every branch conv then runs alone and applies flax's BatchNorm
   (f32, one rounding) to its conv's output in the compute dtype, JAX's
@@ -49,11 +51,11 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..parallel import spatial
 from .keras_names import KerasNamer
 from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1,
-                           decoder_calls, nchw, nhwc, same_pad, torch_kernel)
+                           decoder_calls, same_pad, torch_kernel)
 
 __all__ = ["InceptionResNetV2UNet", "kernel_calls"]
 
@@ -142,9 +144,9 @@ class InceptionResNetV2UNet(KernelUNet):
         w = self._operands(p.conv, (conv.kernel,),
                            lambda: torch_kernel(conv.kernel, self.dtype))
         if p.stride == 1:
-            return nhwc(F.conv2d(nchw(x), w, padding=(p.kh // 2, p.kw // 2)))
+            return spatial.conv2d(x, w, padding=(p.kh // 2, p.kw // 2))
         x = same_pad(x, p.kh, p.kw, p.stride)
-        return nhwc(F.conv2d(nchw(x), w, stride=p.stride))
+        return spatial.conv2d(x, w, stride=p.stride)
 
     def _conv_bn(self, x, p: CB):
         """conv -> flax BatchNorm (f32 arithmetic, one rounding) -> relu."""
@@ -209,7 +211,7 @@ class InceptionResNetV2UNet(KernelUNet):
     @staticmethod
     def _maxpool(x):
         # a zero pad equals flax's -inf pad here: every input is post-relu
-        return nhwc(F.max_pool2d(nchw(same_pad(x, 3, 3, 2)), 3, stride=2))
+        return spatial.max_pool2d(same_pad(x, 3, 3, 2), 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -224,8 +226,8 @@ class InceptionResNetV2UNet(KernelUNet):
         y = self._maxpool(y)
 
         # mixed_5b; TF average pooling excludes padded cells from the mean
-        bp = nhwc(F.avg_pool2d(nchw(y), 3, stride=1, padding=1,
-                               count_include_pad=False))
+        bp = spatial.avg_pool2d(y, 3, stride=1, padding=1,
+                                count_include_pad=False)
         y = torch.cat([*self._branches(y, self.mixed_5b),
                        self._conv_bn(bp, self.mixed_5b_pool)], dim=-1)
         for *branches, conv in self.block35:

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 __all__ = ["MIN_CHANNELS", "calibrate", "calib_of", "dequantize",
            "eligible", "int8_conv", "mode_of", "prepare_weight",
            "quantize_activation", "set_calib"]
@@ -131,7 +133,9 @@ def quantize_activation(x: torch.Tensor, mode: str, conv, name: str = ""):
                 f"{name})")
         scale = _scale(conv.amax.to(x.device, torch.float32))
         return scale, torch.clamp(torch.round(x32 / scale), -127.0, 127.0)
-    amax = x32.abs().amax()
+    # over every strip of a row-sharded x (parallel/spatial.py)
+    amax = spatial.all_max(x32.abs().amax() if x32.numel()
+                           else x32.new_zeros(()))
     if mode == "calib":
         conv.amax = amax if conv.amax is None else torch.maximum(conv.amax,
                                                                  amax)

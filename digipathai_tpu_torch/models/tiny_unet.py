@@ -3,16 +3,16 @@
 Its five 3x3 convs run through ``fused_conv3x3`` (conv + bias + relu), so
 the CPU engine tests go through the kernel module's dispatch; in train mode
 they run ``F.conv2d`` (the kernel has no backward).  Submodules carry
-flax's auto-names ``Conv_0`` .. ``Conv_5``.
+flax's auto-names ``Conv_0`` .. ``Conv_5``.  Its spatial ops go through
+``parallel/spatial.py``, so it runs row-sharded too.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..ops import conv_fused
+from ..parallel import spatial
 from .unet_decoder import Conv, conv1x1, conv_same, upsample2x
 
 
@@ -32,12 +32,11 @@ class TinyUNet(nn.Module):
         c = getattr(self, f"Conv_{i}")
         if self.training:
             return torch.relu(conv_same(x, c, self.dtype))
-        return conv_fused.fused_conv3x3(x, c.kernel, c.bias)
+        return spatial.fused_conv3x3(x, c.kernel, c.bias)
 
     @staticmethod
     def _pool(x):
-        return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(
-            0, 2, 3, 1).contiguous()
+        return spatial.max_pool2d(x, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

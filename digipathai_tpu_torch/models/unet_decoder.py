@@ -21,6 +21,12 @@ parameters changes (keyed on each parameter's device, ``data_ptr`` and
 encoders use the same cache (``_operands``) for their own prepared
 tensors, and ``quantized`` models for each int8 conv's weights.
 
+Every spatial op of the models (convs, pools, ``same_pad``, upsamples,
+resizes, the kernels) goes through ``parallel/spatial.py``, which runs the
+op as before on a tensor and row-sharded inside a lockstep run
+(``engine/tile_infer.py::build_tile_step_sp``); pointwise and channel ops
+run on each strip as they are.
+
 ``quantized`` (``models/quant.py``) runs each eligible conv in int8
 (``PreparedModule._qconv``), as JAX's ``QuantConv`` does.  In the decoder
 that is every conv block with ``min(cin, F) >= 192`` outside a fused
@@ -44,10 +50,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops import conv_fused, stage_fused
-from ..ops.stage_fused import upsample2x
+from ..parallel import spatial
+from ..parallel.spatial import same_pad, upsample2x
 from . import quant
 
 BN_EPS_DECODER = 1e-3
@@ -184,8 +190,8 @@ def conv_same(x: torch.Tensor, conv: Conv, dtype) -> torch.Tensor:
     """A stride-1 SAME conv of NHWC ``x`` in ``dtype`` (one rounding), then
     the bias in ``dtype``, as flax's ``nn.Conv`` computes it."""
     kh, kw = conv.kernel.shape[:2]
-    y = nhwc(F.conv2d(nchw(x.to(dtype)), torch_kernel(conv.kernel, dtype),
-                      padding=(kh // 2, kw // 2)))
+    y = spatial.conv2d(x.to(dtype), torch_kernel(conv.kernel, dtype),
+                       padding=(kh // 2, kw // 2))
     return y if conv.bias is None else y + conv.bias.to(dtype)
 
 
@@ -276,8 +282,10 @@ class PreparedModule(nn.Module):
         scale, q = quant.quantize_activation(x, self.quantized, conv, name)
         if same and (stride > 1 or w.kh > 1 or w.kw > 1):
             q = same_pad(q, w.kh, w.kw, stride)
-        return quant.dequantize(quant.int8_conv(q, w, stride), scale, w,
-                                self.dtype)
+        acc = spatial.valid_rows(q, w.kh, stride,
+                                 lambda t: quant.int8_conv(t, w, stride),
+                                 cout=conv.kernel.shape[-1], kw=w.kw)
+        return quant.dequantize(acc, scale, w, self.dtype)
 
 
 class KernelUNet(PreparedModule):
@@ -334,7 +342,7 @@ class KernelUNet(PreparedModule):
             f"decoder{i}", self._decoder_stamp(i),
             lambda: conv_fused.prepare(*self._decoder_params(i),
                                        dtype=self.dtype, device=x.device))
-        return conv_fused.fused_conv3x3(x, ops)
+        return spatial.fused_conv3x3(x, ops)
 
     def _fused_stage(self, y, skip, i):
         """Decoder conv blocks i and i + 1 as one fused_up_stage."""
@@ -344,8 +352,8 @@ class KernelUNet(PreparedModule):
             lambda: stage_fused.prepare_stage(
                 *self._decoder_params(i), *self._decoder_params(i + 1),
                 dtype=self.dtype, device=y.device))
-        return stage_fused.fused_up_stage(y, opa, None, None, None, opb,
-                                          None, None, None, skip)
+        return spatial.fused_up_stage(y, opa, None, None, None, opb, None,
+                                      None, None, skip)
 
     def _decode(self, y, skips, n: int):
         """The decoder over the encoder output ``y`` and its ``skips``
@@ -367,15 +375,3 @@ class KernelUNet(PreparedModule):
             ci += 2
         logits = conv1x1(y, getattr(self, self._head))
         return torch.softmax(logits.float(), dim=-1)
-
-
-def same_pad(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
-    """Pad NHWC ``x`` with zeros as flax/TF "SAME" does at ``stride``: total
-    ``max((ceil(n / s) - 1) * s + k - n, 0)`` per axis, the smaller half
-    before.  At stride 2 on an even side that is (0, 1), where
-    ``F.conv2d(padding=1)`` would pad (1, 1) and shift the grid."""
-    pads = []
-    for n, k in ((x.shape[2], kw), (x.shape[1], kh)):  # F.pad: last dim first
-        total = max((-(-n // stride) - 1) * stride + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, (0, 0, *pads))

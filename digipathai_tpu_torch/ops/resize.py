@@ -12,6 +12,7 @@ would make every call wait for the device's queue.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -31,6 +32,25 @@ def _axis_tables(n_in: int, n_out: int, device):
     return i0, i1, (pos - i0).to(torch.float32)
 
 
+def source_rows(n_in: int, n_out: int, a: int, b: int):
+    """[lo, hi): the source rows that output rows [a, b) of an
+    ``n_in -> n_out`` resize read, worked out on the host as
+    ``_axis_tables`` computes them (float64, correctly rounded)."""
+    if n_out <= 1 or n_in <= 1:
+        return 0, 1
+    lo = math.floor(a * (n_in - 1) / (n_out - 1))
+    last = min(math.floor((b - 1) * (n_in - 1) / (n_out - 1)) + 1, n_in - 1)
+    return lo, last + 1
+
+
+def lerp(xf: torch.Tensor, i0, i1, w1, axis: int) -> torch.Tensor:
+    """``xf`` interpolated along ``axis`` (1 or 2) between the rows (or
+    columns) ``i0`` and ``i1``, weight ``w1`` (broadcast) on the second."""
+    if axis == 1:
+        return xf[:, i0] * (1.0 - w1) + xf[:, i1] * w1
+    return xf[:, :, i0] * (1.0 - w1) + xf[:, :, i1] * w1
+
+
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """Resize (B, H, W, C) or (B, H, W) along axes 1-2, align_corners=True;
@@ -44,8 +64,6 @@ def resize_bilinear_align_corners(x: torch.Tensor,
         shape[axis] = n_out
         return i0, i1, w1.reshape(shape)
 
-    i0, i1, w1 = table(x.shape[1], oh, 1)
-    xf = xf[:, i0] * (1.0 - w1) + xf[:, i1] * w1
-    j0, j1, v1 = table(x.shape[2], ow, 2)
-    xf = xf[:, :, j0] * (1.0 - v1) + xf[:, :, j1] * v1
+    xf = lerp(xf, *table(x.shape[1], oh, 1), 1)
+    xf = lerp(xf, *table(x.shape[2], ow, 2), 2)
     return xf.to(x.dtype)

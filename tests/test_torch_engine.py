@@ -215,20 +215,33 @@ def test_quantized_and_fold_bn_run(small_slide, tmp_path, monkeypatch, kw,
 
 
 @pytest.mark.parametrize("kw,item", [
-    # data_parallel=2 runs now (tests/test_torch_parallel.py); what is left
-    # of multi-device is the spatially sharded tile step
+    # data_parallel=2 runs (tests/test_torch_parallel.py), and so does the
+    # spatially sharded tile step on two devices (item None: the run gives
+    # the one-device run's mask; tests/test_torch_spatial.py); what is left
+    # to refuse is JAX's ValueError where the padded tile does not split
     pytest.param({"data_parallel": 2, "device": ["cpu", "cpu"],
                   "inference_mode": "tile", "spatial_shard": True},
-                 "multi-device", id="kw4-multi-device"),
+                 None, id="kw4-multi-device"),
+    pytest.param({"data_parallel": 3, "device": ["cpu"] * 3,
+                  "inference_mode": "tile", "spatial_shard": True},
+                 "needs >1 device", id="kw5-tile-does-not-split"),
 ])
 def test_unsupported_kwargs_raise(synthetic_slide, tmp_path, monkeypatch, kw,
                                   item):
     from digipathai_tpu_torch import getSegmentation
 
     monkeypatch.setenv("DPAI_CACHE", str(tmp_path))
-    with pytest.raises(NotImplementedError, match=item):
-        getSegmentation(synthetic_slide[0], **{"model": "oracle",
-                                               "device": "cpu", **kw})
+    run = {"model": "oracle", "device": "cpu", **kw}
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            getSegmentation(synthetic_slide[0], **run)
+        return
+    mask = getSegmentation(synthetic_slide[0], **run)
+    monkeypatch.setenv("DPAI_CACHE", str(tmp_path / "serial"))
+    serial = getSegmentation(synthetic_slide[0], model="oracle",
+                             device="cpu", inference_mode="tile")
+    assert mask.any()
+    np.testing.assert_array_equal(mask, serial)
 
 
 def test_cuda_without_gpu_raises(synthetic_slide, tmp_path, monkeypatch):
@@ -271,7 +284,8 @@ print("ok")
 
 def test_every_module_stands_alone(synthetic_slide, small_slide, tmp_path):
     """Importing every module of the port, a TinyUNet train step, running
-    the oracle engine with crf=True in patch and in tile mode, the 3-model ensemble (quick=False)
+    the oracle engine spatially sharded over two devices and with crf=True
+    in patch and in tile mode, the 3-model ensemble (quick=False)
     in tile mode, and dense from a written .npz cache (folded, quantized
     static) loads no jax, flax or digipathai_tpu module."""
     code = f"""
@@ -286,7 +300,8 @@ for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
              "models.keras_names", "models.unet_decoder",
              "models.convert_h5", "models.fold_bn", "models.quant",
              "training.losses", "training.train", "parallel.distributed",
-             "parallel.inference", "ops.roi", "utils.metrics", "utils.viz"):
+             "parallel.inference", "parallel.spatial", "ops.roi",
+             "utils.metrics", "utils.viz"):
     assert "digipathai_tpu_torch." + name in names, name
 import torch
 from digipathai_tpu_torch.models import registry
@@ -316,6 +331,14 @@ out = pkg.getSegmentation(
     mask_path={str(tmp_path / "m.tiff")!r},
     uncertainty_path={str(tmp_path / "u.tiff")!r}, device="cpu")
 assert out.shape == (256, 192), out.shape
+out = pkg.getSegmentation(
+    {synthetic_slide[0]!r}, patch_size=128, stride_size=128, batch_size=8,
+    model="oracle", mode="colon", supertile=512, num_workers=2,
+    inference_mode="tile", spatial_shard=True, device=["cpu"] * 2,
+    probs_path={str(tmp_path / "p.tiff")!r},
+    mask_path={str(tmp_path / "m.tiff")!r},
+    uncertainty_path={str(tmp_path / "u.tiff")!r})
+assert out.shape == (2048, 1536), out.shape
 for mode in ("patch", "tile"):
     status = {{}}
     out = pkg.getSegmentation(

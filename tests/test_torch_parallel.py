@@ -13,11 +13,11 @@ gives the serial result.  All parity is in f32.
 - the engine in patch mode (grid-dp) and tile mode (supertiles dealt
   round-robin, with and without the CRF) against its serial run and JAX's
   multi-device run of the same slide;
-- ``make_dp_devices``, ``spatial_shard``, the resume key and the server's
-  ``--data-parallel``.
+- ``make_dp_devices``, ``spatial_shard`` (which scheme runs; the sharded
+  step itself is tested in ``test_torch_spatial.py``), the resume key and
+  the server's ``--data-parallel``.
 """
 
-import re
 from pathlib import Path
 
 import numpy as np
@@ -378,9 +378,12 @@ def test_tile_round_robin_matches_jax(tile_slide, tmp_path, monkeypatch):
 
 def test_spatial_shard(tile_slide, tmp_path, monkeypatch):
     """spatial_shard=True raises JAX's ValueError where JAX cannot shard
-    (one device; a padded tile of 512 over 3 devices) and
-    NotImplementedError naming ROADMAP §A 6 where JAX would (4 devices);
-    "auto" deals round-robin."""
+    (one device; a padded tile of 512 over 3 devices) and shards where it
+    can (4 devices: the serial run's mask and maps, bit for bit for this
+    pointwise model); "auto" takes the sharded step when fewer supertiles
+    than devices are left (one tissue supertile on four devices)."""
+    from digipathai_tpu_torch.engine import tile_infer
+
     kw = dict(model="oracle", **TILE_KW)
     with pytest.raises(ValueError, match="needs >1 device"):
         _engine(_port(device="cpu"), tile_slide, tmp_path / "a",
@@ -388,14 +391,26 @@ def test_spatial_shard(tile_slide, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="needs >1 device"):
         _engine(_port(device=["cpu"] * 3), tile_slide, tmp_path / "b",
                 monkeypatch, spatial_shard=True, **kw)
-    with pytest.raises(NotImplementedError, match=re.escape("§A item 6")):
-        _engine(_port(device=["cpu"] * 4), tile_slide, tmp_path / "c",
-                monkeypatch, spatial_shard=True, **kw)
-    # one tissue supertile on four devices: JAX's "auto" would shard it
+    serial = _engine(_port(device="cpu"), tile_slide, tmp_path / "s",
+                     monkeypatch, **kw)
+    taken = []
+    real = tile_infer.build_tile_step_sp
+    monkeypatch.setattr(tile_infer, "build_tile_step_sp",
+                        lambda *a, **k: taken.append(a[4]) or real(*a, **k))
+    sharded = _engine(_port(device=["cpu"] * 4), tile_slide, tmp_path / "c",
+                      monkeypatch, spatial_shard=True, **kw)
+    assert len(taken) == 1 and len(taken[0]) == 4
+    _assert_maps(sharded, serial, exact=True)
+    # one tissue supertile on four devices: JAX's "auto" shards it
     mask, _ = _engine(_port(device=["cpu"] * 4), tile_slide,
                       tmp_path / "d", monkeypatch, spatial_shard="auto",
                       **{**kw, "supertile": 1024 - 128})
-    assert mask.any()
+    assert mask.any() and len(taken) == 2
+    # ... and deals round-robin when there are as many supertiles as
+    # devices (four 384 px supertiles here)
+    _engine(_port(device=["cpu"] * 4), tile_slide, tmp_path / "e",
+            monkeypatch, spatial_shard="auto", **kw)
+    assert len(taken) == 2
 
 
 def test_dp_state_is_not_resumed_serially(dp_slide, tmp_path, monkeypatch):
