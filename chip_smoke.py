@@ -68,6 +68,24 @@ Phases, in order; any failure raises and the script exits non-zero:
              examples/train_torch.py fine-tunes dense on a synthetic slide
              and its -gt pair, and getSegmentation loads the saved weights
              (equal to the trained ones) and runs them on fused_conv3x3;
+4e. mesh   - the (dp, sp, mp) mesh train step
+             (training/train.py::shard_train_step) on cuda:0 repeated,
+             (2, 2, 2) on 8 entries and (1, 2, 2) on 4, after
+             dryrun.entry()'s dense bf16 forward at batch 8 (68 conv
+             launches): the input
+             gradient of avg_pool2d(count_include_pad=False) card vs CPU
+             (PyTorch's kernel on channels-last reported, the port's
+             held to 1e-12); Inception's and
+             DeepLab's serial f64 step on the card against the CPU's
+             (64^2, batch 2), then each model's mesh step against its
+             serial step in f64 (the DenseNet with blocks (1, 1, 1, 1) at
+             batch 8, Inception and DeepLab at batch 2; loss, every
+             gradient leaf, the new BatchNorm statistics); then the full
+             DenseNet121-U-Net in bf16 at batch 16 x 256^2 on both
+             layouts: the first step's loss and gradient tree against the
+             serial step's (and both trees against the f32 step's), 3
+             timed steps beside 3 serial ones, the card's peak memory, the
+             parameter and adam bytes per mesh device, no kernel launched;
 5. engine  - getSegmentation (dense, quick) on a synthetic slide, in patch
              mode and in tile mode with fused_stages=5, each without and
              with crf=True: three readable TIFFs, a mask of shape (X, Y), 68
@@ -130,7 +148,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 phases 1, 2 and of 5a and 5b only the serial references and the runs
 across cards (5b: the step with a strip per card on two cards and on every
 card, f32 on every card, and the engine with spatial_shard=True on each),
-then prints the card's name and power limit and the last line.
+then of 4e the full-width bf16 mesh step with a mesh device per card
+against the serial step on cuda:0, ``dryrun.dryrun_multichip`` over every
+card (the full DenseNet) and the nccl data-parallel step with one process
+per card against the serial step (f64), then prints the card's name and
+power limit and the last line.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the ``kernels`` line's ``launches`` add phase 5a's and
@@ -245,6 +267,20 @@ DP_STATS = 1e-6
 # full-width training: examples/train.py's defaults, bf16
 TRAIN_BATCH = 16
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# the (dp, sp, mp) mesh train step against the serial step in f64
+# (tests/test_torch_mesh.py's bounds): the loss (relative), each gradient
+# leaf over its floored scale, the new BatchNorm statistics
+MESH_LOSS_REL = 1e-9
+MESH_GRAD_REL = 1e-8
+MESH_STATS = 1e-9
+# ... and at full width in bf16: each strip and channel slice rounds its
+# own convs.  The loss (relative); the gradient tree no farther from the
+# f32 step's than MESH_BF16_GRAD times the serial bf16 step's (bf16 alone
+# moves the DenseNet's tree by about 0.74 of its norm: a train-mode
+# BatchNorm cancels most of each weight gradient's partial sums)
+MESH_BF16_LOSS = 1e-2
+MESH_BF16_GRAD = 1.1
+MESH_TIMED = 3
 # grid-dp against the serial run, f32 maps: only the overlap-add's order
 # differs (each shard's batch is one of the serial run's batches of 32)
 DP_BOUND = 1e-5
@@ -1495,10 +1531,11 @@ def phase_quant(state):
         torch.cuda.empty_cache()
 
 
-def train_result(model, x, y, dp=False):
+def train_result(model, x, y, dp=False, generator=None):
     """One train step of ``model`` on (x, y) from a fresh adam -> (loss,
-    {leaf: grad}, {buffer: BatchNorm statistic}), all f64 on the CPU, and
-    the launches it made (every count set to 0 just before)."""
+    {leaf: grad}, {buffer: BatchNorm statistic}), all f64 on the CPU,
+    after checking that it launched no kernel (every count set to 0 just
+    before).  ``generator``: DeepLab's dropout mask."""
     import torch
 
     from digipathai_tpu_torch.training import train
@@ -1506,7 +1543,7 @@ def train_result(model, x, y, dp=False):
     st = train.TrainState(model, train.make_optimizer(model.parameters()))
     make = train.make_dp_train_step if dp else train.make_train_step
     reset_launches()
-    loss = float(make()(st, x, y))
+    loss = float(make()(st, x, y, generator=generator))
     if x.is_cuda:
         torch.cuda.synchronize()
     launches = read_launches()
@@ -1782,6 +1819,398 @@ def train_finetune(state):
         f"loaded it ({n} tensors equal to the trained module's), mask "
         f"{mask.shape}, launches {got} | {state['smi']}")
     del st, loaded
+
+
+def mesh_result(model, x, y, devices, gen=None):
+    """One mesh step of ``model`` (kept) on ``make_mesh(devices=devices)``
+    -> (loss, {leaf: grad}, {buffer: BatchNorm statistic}) as
+    ``train_result`` gives them, after checking that no kernel launched."""
+    import copy
+
+    import torch
+
+    from digipathai_tpu_torch.parallel import mesh as mesh_lib
+    from digipathai_tpu_torch.training import train
+
+    mesh = mesh_lib.make_mesh(devices=devices)
+    m = copy.deepcopy(model)
+    ms = train.shard_state(train.TrainState(
+        m, train.make_optimizer(m.parameters())), mesh)
+    step = train.shard_train_step(mesh)
+    reset_launches()
+    try:
+        loss = float(step(ms, x, y, generator=gen))
+    finally:
+        step.close()
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError(f"a mesh step launched {read_launches()}")
+    grads = {k: g.detach().double().cpu()
+             for k, g in mesh_lib.gather_grads(ms.replicas, mesh).items()}
+    stats = {k: v.double().cpu() for k, v in train.unshard(ms).state_dict(
+        ).items() if k.endswith((".mean", ".var"))}
+    return loss, grads, stats
+
+
+def leaf_bytes(module, optimizer) -> int:
+    """The bytes of a replica's parameters and of adam's moments of them:
+    what one device of the mesh holds."""
+    n = 0
+    for p in module.parameters():
+        n += p.numel() * p.element_size()
+        for key in ("exp_avg", "exp_avg_sq"):
+            t = optimizer.state.get(p, {}).get(key)
+            n += 0 if t is None else t.numel() * t.element_size()
+    return n
+
+
+def avg_pool_grads(state):
+    """The input gradient of a padded ``count_include_pad=False`` average
+    pool (Inception's mixed_5b) in f64 on the card against the CPU's: the
+    raw ``F.avg_pool2d`` on a channels-last view (PyTorch's own kernel,
+    reported) and ``spatial.avg_pool2d`` (the port's, held to 1e-12)."""
+    import torch
+    import torch.nn.functional as F
+
+    from digipathai_tpu_torch.parallel import spatial
+
+    g = torch.Generator().manual_seed(80)
+    x = torch.randn(2, 11, 9, 8, generator=g, dtype=torch.float64)
+    up = torch.randn(2, 11, 9, 8, generator=g, dtype=torch.float64)
+
+    def grad(pool, dev):
+        xi = x.to(dev).requires_grad_()
+        out, = torch.autograd.grad(pool(xi), xi, up.to(dev))
+        return out.cpu()
+
+    def raw(t):
+        return F.avg_pool2d(t.permute(0, 3, 1, 2), 3, stride=1, padding=1,
+                            count_include_pad=False).permute(0, 2, 3, 1)
+
+    def port(t):
+        return spatial.avg_pool2d(t, 3, stride=1, padding=1,
+                                  count_include_pad=False)
+
+    want = grad(port, "cpu")
+    raw_err = (grad(raw, "cuda") - want).abs().max().item()
+    port_err = (grad(port, "cuda") - want).abs().max().item()
+    log(f"[mesh] avg_pool2d(count_include_pad=False) input gradient, f64, "
+        f"card vs CPU: PyTorch's kernel on a channels-last input "
+        f"{raw_err:.2e}, spatial.avg_pool2d {port_err:.2e} | torch "
+        f"{torch.__version__}")
+    if port_err > 1e-12:
+        raise AssertionError("spatial.avg_pool2d's gradient on the card "
+                             "differs from the CPU's")
+
+
+def mesh_f64(state, layouts):
+    """Each model's mesh step against the serial step in f64 on the card:
+    the DenseNet with blocks (1, 1, 1, 1) at batch 8 (small_dense_pair's
+    model), Inception and DeepLab at 64^2, batch 2 (BatchNorms
+    randomized; DeepLab's dropout from one seed on both sides); first
+    Inception's and DeepLab's serial step on the card against the CPU's."""
+    import copy
+
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.parallel.mesh import factor_devices
+
+    cases = []
+    _, card, _, _ = small_dense_pair(torch.float64, 71)
+    card.double()  # f64 parameters too: their gradients are summed
+    g = torch.Generator().manual_seed(72)
+    x = torch.rand(8, 64, 64, 3, generator=g, dtype=torch.float64) * 2 - 1
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (8, 64, 64), generator=g), 2).double()
+    cases.append(("dense (1,1,1,1)", card, x, y))
+    for name in ("inception", "deeplabv3"):
+        model = randomize_bn(build_model(name, dtype=torch.float64).init(
+            64, seed=73).double().cuda(), 74)
+        cases.append((name, model, x[:2], y[:2]))
+    for name, model, x, y in cases:
+        x, y = x.cuda(), y.cuda()
+
+        def gen():  # DeepLab's mask, drawn on the CPU: the same each side
+            return (torch.Generator().manual_seed(75)
+                    if name == "deeplabv3" else None)
+
+        want = train_result(copy.deepcopy(model), x, y, generator=gen())
+        if name != "dense (1,1,1,1)":  # phase 4d holds dense's
+            cpu = train_result(copy.deepcopy(model).cpu(), x.cpu(), y.cpu(),
+                               generator=gen())
+            loss, worst, leaf, norm, stats = step_errors(cpu, want)
+            log(f"[mesh] {name} f64 serial step, card vs CPU (phase 4d's "
+                f"bounds: the f32 softmax's exp and log differ by an ulp): "
+                f"loss rel err {loss:.2e}; worst gradient leaf {worst} "
+                f"{leaf:.2e} of its scale; batch stats {stats:.2e}")
+            if (loss > TRAIN_LOSS_REL or leaf > TRAIN_GRAD_REL
+                    or stats > TRAIN_STATS):
+                raise AssertionError(f"{name}: the card's f64 train step "
+                                     f"differs from the CPU's")
+        for devices in layouts:
+            t = time.perf_counter()
+            got = mesh_result(model, x, y, devices, gen())
+            sec = time.perf_counter() - t
+            loss, worst, leaf, norm, stats = step_errors(want, got)
+            mesh = ",".join(map(str, factor_devices(len(devices))))
+            log(f"[mesh] {name} 64^2 x{x.shape[0]} f64 on {len(devices)} "
+                f"mesh devices ({mesh}) vs serial: loss {want[0]:.6f} rel "
+                f"err {loss:.2e}; worst gradient leaf {worst} {leaf:.2e} "
+                f"of its scale; gradient tree {norm:.2e}; batch stats "
+                f"{stats:.2e}; {sec:.1f} s, no kernel launched")
+            if (loss > MESH_LOSS_REL or leaf > MESH_GRAD_REL
+                    or stats > MESH_STATS):
+                raise AssertionError(f"mesh step {name} on {devices}: "
+                                     f"outside the bounds")
+        del model, want, got
+        torch.cuda.empty_cache()
+
+
+def mesh_full_width(state, layouts, tag):
+    """bf16 steps of the full DenseNet121-U-Net at batch 16 x 256^2 on each
+    mesh layout against the serial step on cuda:0: the first step's loss
+    and gradient tree against the serial first step's (and both trees
+    against the f32 serial step's with TF32 off, the scale of bf16's own
+    rounding), then MESH_TIMED timed steps beside as many serial ones, the
+    peak memory, and the parameter and adam bytes one mesh device
+    holds."""
+    import copy
+
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+    from digipathai_tpu_torch.parallel import mesh as mesh_lib
+    from digipathai_tpu_torch.training import train
+
+    g = torch.Generator(device="cuda").manual_seed(76)
+    x = torch.rand(TRAIN_BATCH, PATCH, PATCH, 3, generator=g,
+                   device="cuda") * 2 - 1
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (TRAIN_BATCH, PATCH, PATCH), generator=g, device="cuda"),
+        2).float()
+    base = build_model("dense").init(PATCH, seed=77).cuda()
+
+    def timed(step, st):
+        ms = []
+        for _ in range(MESH_TIMED):
+            t = time.perf_counter()
+            loss = float(step(st, x, y))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+            if loss != loss:
+                raise AssertionError("loss not finite")
+        return statistics.median(ms), ms
+
+    def tree_rel(got, ref):
+        num = torch.sqrt(sum(((ref[k] - got[k].float().to(ref[k].device))
+                              ** 2).sum() for k in ref))
+        return (num / torch.sqrt(sum((v ** 2).sum()
+                                     for v in ref.values()))).item()
+
+    step = train.make_train_step()
+    f32 = build_model("dense", dtype=torch.float32).module.cuda()
+    f32.load_state_dict(base.state_dict())
+    prev = no_tf32()
+    try:
+        step(train.TrainState(f32, train.make_optimizer(f32.parameters())),
+             x, y)
+    finally:
+        restore_tf32(prev)
+    ref_g = {k: p.grad.float() for k, p in f32.named_parameters()}
+    del f32
+    ser = copy.deepcopy(base)
+    st = train.TrainState(ser, train.make_optimizer(ser.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = float(step(st, x, y))
+    want_g = {k: p.grad.float() for k, p in ser.named_parameters()}
+    serial_f32 = tree_rel(want_g, ref_g)
+    serial_ms, serial_all = timed(step, st)
+    serial_peak = torch.cuda.max_memory_allocated()
+    serial_bytes = leaf_bytes(ser, st.optimizer)
+    del ser, st
+    torch.cuda.empty_cache()
+    out = state.setdefault("mesh", {})
+    for devices in layouts:
+        mesh = mesh_lib.make_mesh(devices=devices)
+        m = copy.deepcopy(base)
+        ms = train.shard_state(train.TrainState(
+            m, train.make_optimizer(m.parameters())), mesh)
+        mstep = train.shard_train_step(mesh)
+        try:
+            torch.cuda.synchronize()
+            for d in {dv for dv in mesh.flat()}:
+                torch.cuda.reset_peak_memory_stats(d)
+            reset_launches()
+            t = time.perf_counter()
+            loss = float(mstep(ms, x, y))
+            torch.cuda.synchronize()
+            first = 1e3 * (time.perf_counter() - t)
+            got_g = mesh_lib.gather_grads(ms.replicas, mesh)
+            gerr, mesh_f32 = tree_rel(got_g, want_g), tree_rel(got_g, ref_g)
+            del got_g
+            mesh_ms, mesh_all = timed(mstep, ms)
+            launches = read_launches()
+            peaks = {str(d): torch.cuda.max_memory_allocated(d)
+                     for d in {dv for dv in mesh.flat()}}
+        finally:
+            mstep.close()
+        per_dev = [leaf_bytes(r, ms.optimizer) for r in ms.replicas]
+        lerr = abs(loss - want) / abs(want)
+        shape = ",".join(str(v) for v in mesh.shape.values())
+        out[f"{tag}:{shape}:{len(devices)}"] = {
+            "ms": mesh_ms, "serial_ms": serial_ms, "loss_rel": lerr,
+            "grad_rel": gerr, "grad_f32": mesh_f32,
+            "serial_f32": serial_f32, "bytes": per_dev[0],
+            "serial_bytes": serial_bytes, "peaks": peaks}
+        log(f"[mesh] dense bf16 batch {TRAIN_BATCH} x {PATCH}^2 on "
+            f"{len(devices)} mesh devices ({shape}) over "
+            f"{sorted(set(map(str, devices)))}: {mesh_ms:.2f} ms/step "
+            f"(timed {[round(v, 2) for v in mesh_all]}, first {first:.1f}) "
+            f"against serial {serial_ms:.2f} ms/step (timed "
+            f"{[round(v, 2) for v in serial_all]}) = "
+            f"{mesh_ms / serial_ms:.2f}x; loss {loss:.5f} vs serial "
+            f"{want:.5f} rel err {lerr:.2e}; gradient tree {gerr:.2e} of its "
+            f"norm (against the f32 step's: mesh {mesh_f32:.2e}, serial "
+            f"{serial_f32:.2e}); parameter + adam bytes per mesh device "
+            f"{per_dev[0] / 2 ** 20:.1f} MiB (min {min(per_dev) / 2 ** 20:.1f}"
+            f", max {max(per_dev) / 2 ** 20:.1f}) against serial "
+            f"{serial_bytes / 2 ** 20:.1f} MiB; peak memory "
+            + ", ".join(f"{k} {v / 2 ** 30:.2f} GiB" for k, v in
+                        peaks.items())
+            + f" (serial {serial_peak / 2 ** 30:.2f} GiB); launches "
+            f"{launches} | {state['smi']}")
+        if any(launches.values()):
+            raise AssertionError(f"the mesh step launched {launches}")
+        if lerr > MESH_BF16_LOSS or mesh_f32 > MESH_BF16_GRAD * serial_f32:
+            raise AssertionError(f"mesh step on {devices} against serial: "
+                                 f"loss {lerr:.2e}, gradient {mesh_f32:.2e} "
+                                 f"from f32 (serial {serial_f32:.2e})")
+        del m, ms
+        torch.cuda.empty_cache()
+    del base, x, y, want_g, ref_g
+    torch.cuda.empty_cache()
+
+
+def dp_rank(rank, world, port, out_dir):
+    """One rank of the nccl data-parallel step over ``world`` cards (a
+    process of its own on card ``rank``): its share of small_dense_pair's
+    f64 batch of 8; rank 0 writes its loss, gradients and statistics."""
+    import torch
+
+    from digipathai_tpu_torch.parallel import distributed
+
+    distributed.initialize(coordinator=f"127.0.0.1:{port}",
+                           num_processes=world, process_id=rank,
+                           device="cuda")
+    import torch.distributed as tdist
+
+    try:
+        _, model, _, _ = small_dense_pair(torch.float64, 78)  # card `rank`
+        x, y = dp_batch()
+        b = x.shape[0] // world
+        share = slice(rank * b, (rank + 1) * b)
+        got = train_result(model, x[share].cuda(), y[share].cuda(), dp=True)
+        if rank == 0:
+            torch.save(got, os.path.join(out_dir, "dp_rank0.pt"))
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def dp_batch():
+    import torch
+
+    g = torch.Generator().manual_seed(79)
+    x = torch.rand(8, 64, 64, 3, generator=g, dtype=torch.float64) * 2 - 1
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 2, (8, 64, 64), generator=g), 2).double()
+    return x, y
+
+
+def nccl_dp_cards(state):
+    """The nccl data-parallel step (``make_dp_train_step``) with one
+    process per card against the serial step on cuda:0, f64."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    world = torch.cuda.device_count()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(r, world, port, state["tmp"]))
+             for r in range(world)]
+    t = time.time()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    sec = time.time() - t
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"nccl dp ranks exited "
+                             f"{[p.exitcode for p in procs]}")
+    got = torch.load(os.path.join(state["tmp"], "dp_rank0.pt"))
+    _, plain, _, _ = small_dense_pair(torch.float64, 78)
+    x, y = dp_batch()
+    want = train_result(plain, x.cuda(), y.cuda())
+    loss, worst, leaf, norm, stats = step_errors(want, got)
+    log(f"[mesh] nccl dp step over {world} cards (one process each, "
+        f"batch 8 split {world} ways), f64, against the serial step: loss "
+        f"rel err {loss:.2e}; worst gradient leaf {worst} {leaf:.2e} of its "
+        f"scale; batch stats {stats:.2e}; {sec:.1f} s with start-up")
+    if loss > TRAIN_LOSS_REL or leaf > DP_GRAD_REL or stats > DP_STATS:
+        raise AssertionError("nccl dp step across cards differs from the "
+                             "serial step")
+
+
+def phase_mesh(state, one_card=True):
+    """4e: the (dp, sp, mp) mesh train step.  One card: the mesh on
+    cuda:0 repeated, (2, 2, 2) on 8 entries and (1, 2, 2) on 4: each
+    model's step against the serial step in f64, then full-width bf16
+    DenseNet steps against serial.  ``one_card=False`` (``--cards``): the
+    full-width step with a mesh device per card, ``dryrun_multichip``
+    over every card, and the nccl dp step with one process per card."""
+    import torch
+
+    if one_card:
+        from digipathai_tpu_torch.dryrun import entry
+
+        fn, args = entry()
+        reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"[mesh] dryrun.entry(): dense bf16 forward {tuple(out.shape)}, "
+            f"launches {launches}")
+        if (tuple(out.shape) != (8, PATCH, PATCH, 2)
+                or not torch.isfinite(out).all()
+                or launches["fused_conv3x3"] != 68):
+            raise AssertionError("dryrun.entry() forward")
+        del fn, args, out
+        layouts = [["cuda:0"] * 8, ["cuda:0"] * 4]
+        avg_pool_grads(state)
+        mesh_f64(state, layouts)
+        mesh_full_width(state, layouts[::-1], "one card")
+        return
+    from digipathai_tpu_torch.dryrun import dryrun_multichip
+
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    mesh_full_width(state, [cards], "cards")
+    t = time.time()
+    dryrun_multichip(len(cards), log=lambda m: log(f"[mesh] {m}"))
+    log(f"[mesh] dryrun_multichip({len(cards)}) over {cards} in "
+        f"{time.time() - t:.1f} s | {state['smi']}")
+    nccl_dp_cards(state)
 
 
 def reset_launches():
@@ -2290,9 +2719,12 @@ def phase_dp(state, one_card=True):
 
 def phase_cards(state):
     """5a and 5b with ``--cards``: the serial references and the runs
-    across cards only."""
+    across cards only; then 4e's runs across cards: the mesh step over
+    every card, ``dryrun_multichip`` over every card, and the nccl
+    data-parallel step with one process per card."""
     phase_dp(state, one_card=False)
     phase_sp(state, one_card=False)
+    phase_mesh(state, one_card=False)
 
 
 def sp_models(kind, dtype):
@@ -2671,7 +3103,7 @@ def main():
         return 1
     phases = (phase_device, phase_build, phase_kernels, phase_model,
               phase_weights, phase_fold, phase_quant, phase_train,
-              phase_engine, phase_dp, phase_sp, phase_server)
+              phase_mesh, phase_engine, phase_dp, phase_sp, phase_server)
     if cards:
         phases = (phase_device, phase_build, phase_cards)
     state = {}

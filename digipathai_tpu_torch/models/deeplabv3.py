@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel import spatial
+from ..parallel import channels, spatial
 from ..parallel.spatial import resize_bilinear_align_corners
 from .unet_decoder import (BatchNorm, Conv, PreparedModule, conv1x1,
                            same_pad, torch_kernel)
@@ -71,9 +71,10 @@ DROPOUT_RATE = 0.1
 def dropout(y: torch.Tensor, rate: float, generator: torch.Generator):
     """flax's ``nn.Dropout``: keep each element with probability 1 - rate,
     scaled by 1 / (1 - rate) in y's dtype, zero elsewhere; the mask drawn
-    from ``generator`` (on y's device)."""
+    from ``generator`` (on its device).  On a mesh each device takes its
+    block of the mask the whole batch draws (``spatial.rand``)."""
     keep = 1.0 - rate
-    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+    mask = spatial.rand(y, generator) < keep
     return torch.where(mask, y / keep, torch.zeros((), dtype=y.dtype,
                                                    device=y.device))
 
@@ -143,8 +144,10 @@ class DeepLabV3Plus(PreparedModule):
             return self._qconv(y, name, stride=stride)
         w = self._kernel(name)
         if stride == 1:
-            return spatial.conv2d(y, w, padding=1)
-        return spatial.conv2d(same_pad(y, 3, 3, stride), w, stride=stride)
+            y = spatial.conv2d(y, w, padding=1)
+        else:
+            y = spatial.conv2d(same_pad(y, 3, 3, stride), w, stride=stride)
+        return channels.gather(y, getattr(self, name).kernel)
 
     def _sep_conv_bn(self, y, prefix, stride=1, rate=1,
                      depth_activation=False):
@@ -153,8 +156,10 @@ class DeepLabV3Plus(PreparedModule):
         # ``rate`` on each side: dilated SAME at stride 1, and at stride 2
         # (rate 1 at output stride 16) the reference's (1, 1) before VALID
         name = f"{prefix}_depthwise"
-        y = spatial.conv2d(y, self._kernel(name), stride=stride,
-                           padding=rate, dilation=rate, groups=y.shape[-1])
+        kernel, w = getattr(self, name).kernel, self._kernel(name)
+        y = spatial.conv2d(channels.mine(y, kernel), w, stride=stride,
+                           padding=rate, dilation=rate, groups=w.shape[0])
+        y = channels.gather(y, kernel)
         y = self._bn(y, name, depth_activation)
         name = f"{prefix}_pointwise"
         return self._bn(self._conv1x1(y, name), name, depth_activation)

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import conv_fused
-from ..parallel import spatial
+from ..parallel import channels, spatial
 from .keras_names import KerasNamer
 from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1, conv_same,
                            decoder_calls, init_params)
@@ -170,8 +170,10 @@ class DenseNet121UNet(KernelUNet):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
-        k = self.conv1__conv.kernel.to(dt).permute(3, 2, 0, 1)
-        y = spatial.conv2d(x, k, stride=2, padding=3)
+        kernel = self.conv1__conv.kernel
+        y = channels.gather(spatial.conv2d(
+            x, kernel.to(dt).permute(3, 2, 0, 1), stride=2, padding=3),
+            kernel)
         y = self.conv1__bn(y, relu=True)
         conv1 = y
         # zero pad == -inf pad here: the input is post-relu

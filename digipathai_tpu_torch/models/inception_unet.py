@@ -52,7 +52,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..parallel import spatial
+from ..parallel import channels, spatial
 from .keras_names import KerasNamer
 from .unet_decoder import (BatchNorm, Conv, KernelUNet, conv1x1,
                            decoder_calls, same_pad, torch_kernel)
@@ -144,9 +144,11 @@ class InceptionResNetV2UNet(KernelUNet):
         w = self._operands(p.conv, (conv.kernel,),
                            lambda: torch_kernel(conv.kernel, self.dtype))
         if p.stride == 1:
-            return spatial.conv2d(x, w, padding=(p.kh // 2, p.kw // 2))
-        x = same_pad(x, p.kh, p.kw, p.stride)
-        return spatial.conv2d(x, w, stride=p.stride)
+            y = spatial.conv2d(x, w, padding=(p.kh // 2, p.kw // 2))
+        else:
+            y = spatial.conv2d(same_pad(x, p.kh, p.kw, p.stride), w,
+                               stride=p.stride)
+        return channels.gather(y, conv.kernel)
 
     def _conv_bn(self, x, p: CB):
         """conv -> flax BatchNorm (f32 arithmetic, one rounding) -> relu."""

@@ -25,7 +25,10 @@ Every spatial op of the models (convs, pools, ``same_pad``, upsamples,
 resizes, the kernels) goes through ``parallel/spatial.py``, which runs the
 op as before on a tensor and row-sharded inside a lockstep run
 (``engine/tile_infer.py::build_tile_step_sp``); pointwise and channel ops
-run on each strip as they are.
+run on each strip as they are.  On a (dp, sp, mp) mesh
+(``training/train.py::shard_train_step``) each train-mode conv computes
+its slice of the output channels and gathers the rest, and each BatchNorm
+gathers its affine, through ``parallel/channels.py``.
 
 ``quantized`` (``models/quant.py``) runs each eligible conv in int8
 (``PreparedModule._qconv``), as JAX's ``QuantConv`` does.  In the decoder
@@ -52,7 +55,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import conv_fused, stage_fused
-from ..parallel import spatial
+from ..parallel import channels, spatial
 from ..parallel.spatial import same_pad, upsample2x
 from . import quant
 
@@ -101,8 +104,10 @@ class BatchNorm(nn.Module):
     normalizes with the batch's statistics as flax's ``_compute_stats``
     takes them (in f32 or wider, E[x] and max(0, E[x^2] - E[x]^2) over
     (N, H, W), the variance biased) and moves ``mean``/``var`` toward them by
-    ``BN_MOMENTUM``, in f32 and outside autograd.  ``reduce``, when set,
-    sums the per-channel sums over the ranks of a data-parallel step
+    ``BN_MOMENTUM``, in f32 and outside autograd.  Inside a lockstep run the
+    per-channel sums add up over every strip and batch shard
+    (``spatial.batch_sum``; each strip counts its own rows); ``reduce``,
+    when set, sums them over the ranks of a data-parallel step
     (differentiably), so the statistics are the global batch's."""
 
     def __init__(self, features: int, eps: float, use_scale: bool = True):
@@ -129,13 +134,13 @@ class BatchNorm(nn.Module):
         return tuple(t for t in (self.scale, self.bias, self.mean, self.var)
                      if t is not None)
 
-    def _mul(self, var):
+    def _mul(self, var, scale):
         mul = torch.rsqrt(var + self.eps)
-        return mul if self.scale is None else self.scale * mul
+        return mul if scale is None else scale * mul
 
     def folded(self):
         """(mul, add), f32: BN(x) == x * mul + add."""
-        mul = self._mul(self.var)
+        mul = self._mul(self.var, self.scale)
         return mul, self.bias - self.mean * mul
 
     def batch_stats(self, xf):
@@ -143,24 +148,30 @@ class BatchNorm(nn.Module):
         and the running statistics updated toward them."""
         dims = tuple(range(xf.dim() - 1))
         count = xf.new_full((1,), xf.numel() // xf.shape[-1])
-        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims), count])
+        sums = spatial.batch_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                            count]))
         if self.reduce is not None:
             sums = self.reduce(sums)
         mean, mean2 = (sums[:-1] / sums[-1]).chunk(2)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             m = 1.0 - BN_MOMENTUM
-            self.mean.copy_(BN_MOMENTUM * self.mean + m * mean)
-            self.var.copy_(BN_MOMENTUM * self.var + m * var)
+            self.mean.copy_(BN_MOMENTUM * self.mean
+                            + m * channels.mine(mean, self.mean))
+            self.var.copy_(BN_MOMENTUM * self.var
+                           + m * channels.mine(var, self.var))
         return mean, var
 
     def forward(self, x, relu: bool = False):
         """flax's BatchNorm on an x.dtype input: f32 arithmetic, one
         rounding to x.dtype."""
         xf = _at_least_f32(x)
-        mean, var = (self.batch_stats(xf) if self.training
-                     else (self.mean, self.var))
-        y = (xf - mean) * self._mul(var) + self.bias
+        if self.training:
+            mean, var = self.batch_stats(xf)
+            scale, bias = channels.whole(self.scale, self.bias)
+        else:
+            mean, var, scale, bias = self.mean, self.var, self.scale, self.bias
+        y = (xf - mean) * self._mul(var, scale) + bias
         if relu:
             y = torch.relu(y)
         return y.to(x.dtype)
@@ -174,8 +185,9 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 def conv1x1(x: torch.Tensor, conv: Conv) -> torch.Tensor:
     """A 1x1 conv on NHWC is a matmul over channels (one rounding), then
     the bias in x.dtype, as flax adds it."""
-    y = torch.matmul(x, conv.kernel[0, 0].to(x.dtype))
-    return y if conv.bias is None else y + conv.bias.to(x.dtype)
+    y = torch.matmul(x, conv.kernel.flatten(0, 2).to(x.dtype))
+    y = y if conv.bias is None else y + conv.bias.to(x.dtype)
+    return channels.gather(y, conv.kernel)
 
 
 def nchw(x):
@@ -192,7 +204,8 @@ def conv_same(x: torch.Tensor, conv: Conv, dtype) -> torch.Tensor:
     kh, kw = conv.kernel.shape[:2]
     y = spatial.conv2d(x.to(dtype), torch_kernel(conv.kernel, dtype),
                        padding=(kh // 2, kw // 2))
-    return y if conv.bias is None else y + conv.bias.to(dtype)
+    y = y if conv.bias is None else y + conv.bias.to(dtype)
+    return channels.gather(y, conv.kernel)
 
 
 def torch_kernel(k: torch.Tensor, dtype) -> torch.Tensor:

@@ -24,3 +24,18 @@ def normalize_patches(patches_u8: torch.Tensor,
                       dtype=torch.bfloat16) -> torch.Tensor:
     """(x - 128) / 128 in ``dtype``, on the patches' device."""
     return (patches_u8.to(dtype) - 128.0) / 128.0
+
+
+def normalize_minmax(data):
+    """Min-max contrast normalization of a host array to [0, 1]; all zeros
+    when it is constant (the reference's ``normalize_minmax``, whose
+    ``np.float`` alias numpy has removed: its evident intent)."""
+    import numpy as np
+
+    data = np.asarray(data)
+    lo = float(data.min())
+    hi = float(data.max())
+    if hi - lo == 0:
+        return np.zeros_like(data, dtype=np.float64 if data.dtype.kind != "f"
+                             else data.dtype)
+    return (data - lo) / (hi - lo)

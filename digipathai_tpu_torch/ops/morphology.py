@@ -56,6 +56,14 @@ def morpho_process_mask(mask: torch.Tensor, level: int) -> torch.Tensor:
     return dilate(open_(close(mask, 20), 5), k)
 
 
+def bin_morpho_process_mask(mask: torch.Tensor, close_k: int = 50,
+                            open_k: int = 35) -> torch.Tensor:
+    """Level-independent close -> open tissue-mask cleanup (the reference's
+    ``BinMorphoProcessMask``, whose close 50 / open 35 redefinition shadows
+    the close 20 / open 5 one at import time; both through the kwargs)."""
+    return open_(close(mask, close_k), open_k)
+
+
 def tissue_mask(img_xyc_u8: torch.Tensor) -> torch.Tensor:
     """HSV-saturation and per-channel RGB Otsu tissue mask of an (X, Y, 3)
     uint8 image."""
@@ -71,6 +79,19 @@ def tissue_mask(img_xyc_u8: torch.Tensor) -> torch.Tensor:
 def plan_mask(img_xyc_u8: torch.Tensor, level: int) -> torch.Tensor:
     """Tissue mask + morphology: what the planner thresholds patches on."""
     return morpho_process_mask(tissue_mask(img_xyc_u8), level)
+
+
+def tissue_mask_saturation_binary(img_xyc_u8: torch.Tensor) -> torch.Tensor:
+    """Nonzero-saturation mask, HSV S > 0 (the reference's
+    ``TissueMaskGeneration_BIN``)."""
+    return rgb_to_hsv_saturation(img_xyc_u8) > 0.0
+
+
+def tissue_mask_saturation_otsu(img_xyc_u8: torch.Tensor) -> torch.Tensor:
+    """Saturation over its Otsu threshold (the reference's
+    ``TissueMaskGeneration_BIN_OTSU``)."""
+    sat = rgb_to_hsv_saturation(img_xyc_u8)
+    return sat > otsu_threshold(sat)
 
 
 def tissue_mask_patch(patch_rgb: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@
 DeepLabv3+ upsamples with ``tf.compat.v1.image.resize(...,
 align_corners=True)``: source position ``i * (in - 1) / (out - 1)``,
 linear interpolation, per axis.  As in JAX, the positions are computed in
-float64 and the weights rounded to float32, the interpolation runs in f32,
+float64 and the weights rounded to float32, the interpolation runs in f32
+(in f64 on an f64 input, where JAX's x64 forward keeps f32: an f64 model
+then has no f32 step whose rounding a row-sharded forward would reorder),
 rows first, and the result is cast back to the input's dtype once.  The
 tables are computed on the input's device: uploading them from the host
 would make every call wait for the device's queue.
@@ -43,6 +45,11 @@ def source_rows(n_in: int, n_out: int, a: int, b: int):
     return lo, last + 1
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the interpolation's dtype: f32, or x's where it is wider."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def lerp(xf: torch.Tensor, i0, i1, w1, axis: int) -> torch.Tensor:
     """``xf`` interpolated along ``axis`` (1 or 2) between the rows (or
     columns) ``i0`` and ``i1``, weight ``w1`` (broadcast) on the second."""
@@ -54,9 +61,9 @@ def lerp(xf: torch.Tensor, i0, i1, w1, axis: int) -> torch.Tensor:
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """Resize (B, H, W, C) or (B, H, W) along axes 1-2, align_corners=True;
-    f32 arithmetic, one rounding to x.dtype."""
+    f32 arithmetic (``wide``), one rounding to x.dtype."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
-    xf = x.float()
+    xf = wide(x)
 
     def table(n_in, n_out, axis):
         i0, i1, w1 = _axis_tables(n_in, n_out, x.device)

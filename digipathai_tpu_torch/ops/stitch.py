@@ -93,3 +93,15 @@ def finalize_maps(mean_sum, var_sum, count):
     ``var / count**2``)."""
     c = torch.clamp(count, min=1.0)
     return mean_sum / c, var_sum / (c * c)
+
+
+def get_mean_img(probs, count_map):
+    """Per-pixel mean and variance over a stack of overlap-add maps, each
+    divided by ``count_map`` (0 counts as 1): the reference's dead-code
+    ``get_mean_img``, whose body overwrites its result with zeros; its
+    evident intent, on host arrays.  The engine computes the same on the
+    device (``finalize_maps``)."""
+    probs = np.array(list(probs), dtype=np.float32)
+    counts = np.maximum(np.asarray(count_map, np.float32), 1.0)[None, ...]
+    probs = probs / counts
+    return np.mean(probs, axis=0), np.var(probs, axis=0)

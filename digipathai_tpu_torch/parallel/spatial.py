@@ -43,11 +43,28 @@ Every op takes a tensor: inside a lockstep run the calling thread's
 strip, whose output rows it computes; outside one a whole tensor, on
 which it runs exactly the code the models ran before.
 
+A run may also be a grid (``StripThreads.run_grid``, the mesh train step
+of ``training/train.py``): each thread's ``Place`` names the threads whose
+blocks are its row strips (``strips``, the ``sp`` axis), those that hold
+the other channel slices of the sharded parameters (``channels``, ``mp``,
+``parallel/channels.py``) and those whose batch statistics add up with its
+own (``batch``: every batch shard and strip).  Every thread posts at every
+exchange; each op reads the posts of its own group.  ``batch_sum`` (the
+BatchNorm statistics and the loss sums) and ``rand`` (DeepLab's dropout
+mask, drawn once for the whole batch) are the grid's own exchanges.
+
+With gradients on, every exchange is differentiable: a block another
+strip reads reaches it through ``torch.cat`` and ``Tensor.to``, so one
+``backward()`` from the loss sends each strip's gradient back to the strip
+that owns the rows it borrowed, whatever thread built that part of the
+graph.
+
 Blocks on different CUDA devices are copied on a side stream of the source
 device that waits only for the block's own producer (an event recorded when
 it was posted): PyTorch's cross-device ``copy_`` on the current streams
 would make each card wait for the other's queue, and the cards would take
-turns.
+turns.  With gradients on, blocks cross devices with ``Tensor.to``, on the
+current streams, so that autograd orders the backward's copies itself.
 """
 
 from __future__ import annotations
@@ -92,6 +109,20 @@ def _pair(v):
 # ----------------------------------------------------------- lockstep runs
 
 _local = threading.local()
+
+
+class Place(NamedTuple):
+    """Where a thread's block lies in a run: the run's thread indices
+    (ranks) of its row strips in row order (``strips``, itself among them),
+    of the threads holding the channel slices of the sharded parameters in
+    slice order (``channels``), and of the threads whose batch statistics
+    add up with its own (``batch``); ``shard``: (its batch shard, the
+    number of shards) of the global batch."""
+    rank: int
+    strips: tuple
+    channels: tuple
+    batch: tuple
+    shard: tuple = (0, 1)
 
 
 class _Aborted(Exception):
@@ -172,6 +203,8 @@ class _Lockstep:
 
 
 def _ctx():
+    """(the run's ``_Lockstep``, this thread's ``Place``), or None outside
+    a lockstep run."""
     return getattr(_local, "ctx", None)
 
 
@@ -216,11 +249,23 @@ class StripThreads:
         its strip of an NHWC-like tensor (rows on axis 1); the result is
         their ``RowShards``.  A failure in one strip stops every strip and
         is raised here."""
-        d = len(shards.blocks)
-        if len(modules) != d or d != self.d:
+        every = tuple(range(len(shards.blocks)))
+        return _assemble(self.run_grid(
+            fn, modules, shards.blocks, [b.device for b in shards.blocks],
+            [Place(r, every, (r,), every) for r in every]))
+
+    def run_grid(self, fn: Callable, modules: Sequence, args: Sequence,
+                 devices: Sequence, places: Sequence[Place]) -> list:
+        """``fn(modules[i], args[i])`` for every thread i at once, in
+        lockstep, on ``devices[i]`` at ``places[i]``, under the caller's
+        grad and inference modes -> the calls' results in order.  A failure
+        in one thread stops every thread and is raised here."""
+        d = len(args)
+        if not (len(modules) == len(devices) == len(places) == d == self.d):
             raise ValueError(f"StripThreads.run: {len(modules)} modules and "
-                             f"{d} strips for {self.d} threads")
-        step = _Lockstep(d, len({b.device for b in shards.blocks}) > 1)
+                             f"{d} blocks for {self.d} threads")
+        devices = [torch.device(dev) for dev in devices]
+        step = _Lockstep(d, len(set(devices)) > 1)
         out = [None] * d
         grad = torch.is_grad_enabled()
         inference = torch.is_inference_mode_enabled()
@@ -228,13 +273,13 @@ class StripThreads:
         def work(rank):
             try:
                 step._wait(rank)
-                _local.ctx = (step, rank)
-                dev = shards.blocks[rank].device
+                _local.ctx = (step, places[rank])
+                dev = devices[rank]
                 guard = (torch.cuda.device(dev) if dev.type == "cuda"
                          else nullcontext())
                 with torch.inference_mode(inference), \
                         torch.set_grad_enabled(grad), guard:
-                    out[rank] = fn(modules[rank], shards.blocks[rank])
+                    out[rank] = fn(modules[rank], args[rank])
             except _Aborted:
                 pass
             except BaseException as e:  # noqa: B902 - the caller re-raises
@@ -251,7 +296,7 @@ class StripThreads:
                 self._done.get()
         if step.error is not None:
             raise step.error
-        return _assemble(out)
+        return out
 
     def close(self):
         for jobs in self._jobs:
@@ -292,14 +337,19 @@ def _assemble(blocks, ready=None) -> RowShards:
                      None if ready is None else tuple(ready))
 
 
-def _exchange(values):
-    """In a lockstep run: every strip's ``values`` (a tuple), with each
-    tensor's ready event."""
-    step, rank = _ctx()
-    posts = step.exchange(rank, tuple(
+def _exchange(values, axis: Optional[str] = "strips"):
+    """In a lockstep run: ``values`` (a tuple) as every thread of this
+    thread's group along ``axis`` posted them (a ``Place`` field; None:
+    every thread of the run), each tensor with its ready event, and this
+    thread's index in the group."""
+    step, place = _ctx()
+    posts = step.exchange(place.rank, tuple(
         (v, _record(v)) if step.cross and isinstance(v, torch.Tensor)
         else (v, None) for v in values))
-    return posts, rank
+    if axis is None:
+        return posts, place.rank
+    group = getattr(place, axis)
+    return [posts[r] for r in group], group.index(place.rank)
 
 
 def _strip_shards(posts, j) -> RowShards:
@@ -360,6 +410,18 @@ def gather_rows(shards: RowShards, lo: int, hi: int, device, fill=None):
     real = max(0, rhi - rlo)
     rows = hi - lo if fill is not None else real
     shape = list(shards.blocks[0].shape)
+    if torch.is_grad_enabled() and any(p.requires_grad for p, _ in pieces):
+        # differentiable: the backward returns each piece's gradient to its
+        # owner
+        parts = [p.to(device) for p, _ in pieces]
+        if fill is not None:
+            top = min(above, rows)
+            sides = []
+            for n in (top, rows - top - real):
+                shape[1] = n
+                sides.append(parts[0].new_full(shape, fill))
+            parts = [sides[0], *parts, sides[1]]
+        return torch.cat(parts, dim=1), above, below
     shape[1] = rows
     out = torch.empty(shape, dtype=shards.blocks[0].dtype, device=device)
     at = 0
@@ -535,9 +597,19 @@ def max_pool2d(x, k: int, stride: Optional[int] = None, padding: int = 0):
 def avg_pool2d(x, k: int, stride: Optional[int] = None, padding: int = 0,
                count_include_pad: bool = True):
     """``F.avg_pool2d`` on NHWC ``x``; with ``count_include_pad=False``
-    the padded cells count in no mean, sharded or not."""
+    the padded cells count in no mean, sharded or not.  With gradients on,
+    that case pools a contiguous NCHW copy: on a channels-last input,
+    CUDA's backward of it gives wrong input gradients (torch 2.11, cu128;
+    ``chip_smoke.py`` phase 4e holds the card's train step to the
+    CPU's)."""
+    def nchw(t):
+        t = _nchw(t)
+        if count_include_pad or not padding or not torch.is_grad_enabled():
+            return t
+        return t.contiguous()
+
     return _pool(x, lambda t: _nhwc(F.avg_pool2d(
-        _nchw(t), k, stride=stride, padding=padding,
+        nchw(t), k, stride=stride, padding=padding,
         count_include_pad=count_include_pad)), k,
         k if stride is None else stride, padding)
 
@@ -648,29 +720,31 @@ def resize_bilinear_align_corners(x, out_hw, replicated: bool = False):
         blk, _, _ = gather_rows(src, lo, hi, dev)
         rest = [1] * (blk.dim() - 3)
         i0, i1, w1 = resize._axis_tables(n_in, oh, dev)
-        xf = resize.lerp(blk.float(), i0[a:b] - lo, i1[a:b] - lo,
+        xf = resize.lerp(resize.wide(blk), i0[a:b] - lo, i1[a:b] - lo,
                          w1[a:b].reshape(1, -1, 1, *rest), 1)
         j0, j1, v1 = resize._axis_tables(blk.shape[2], ow, dev)
         return resize.lerp(xf, j0, j1, v1.reshape(1, 1, -1, *rest), 2).to(
             blk.dtype)
 
     if replicated:  # each strip computes its rows from its whole copy
-        step, rank = _ctx()
-        a, b = partition(oh, step.d)[rank]
+        place = _ctx()[1]
+        a, b = partition(oh, len(place.strips))[
+            place.strips.index(place.rank)]
         return rows(_assemble([x]), a, b, x.device)
     return _rowwise(x, lambda h: oh, lambda s, a, b, dev: rows(s[0], a, b,
                                                                  dev))
 
 
 def global_mean(y):
-    """The f32 mean of NHWC ``y`` over rows and columns, (N, 1, 1, C) in
-    y's dtype.  Sharded: each strip's f32 sum, the sums added in strip
-    order on every strip's device and divided by the global count; the
-    result is the same whole tensor on every strip."""
+    """The mean of NHWC ``y`` over rows and columns in f32 (or y's dtype
+    where it is wider), (N, 1, 1, C) in y's dtype.  Sharded: each strip's
+    sum, the sums added in strip order on every strip's device and divided
+    by the global count; the result is the same whole tensor on every
+    strip."""
+    wide = y.to(torch.promote_types(y.dtype, torch.float32))
     if not sharded():
-        return y.float().mean(dim=(1, 2), keepdim=True).to(y.dtype)
-    posts, _ = _exchange((y.float().sum(dim=(1, 2), keepdim=True),
-                          y.shape[1]))
+        return wide.mean(dim=(1, 2), keepdim=True).to(y.dtype)
+    posts, _ = _exchange((wide.sum(dim=(1, 2), keepdim=True), y.shape[1]))
     total = None
     for (s, ev), _ in posts:
         s = _on(s, ev, y.device)
@@ -692,11 +766,51 @@ def all_max(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over this thread's ``batch`` group (every batch shard
+    and strip that holds the same channel slice), in group order, on this
+    thread's device: the BatchNorm statistics' and the loss's sums.
+    Differentiable.  Outside a lockstep run: ``t``."""
+    if not sharded():
+        return t
+    posts, _ = _exchange((t,), "batch")
+    out = None
+    for (v, ev), in posts:
+        v = _on(v, ev, t.device)
+        out = v if out is None else out + v
+    return out
+
+
+def rand(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``torch.rand`` of ``y``'s shape from ``generator`` (on its device).
+    Inside a lockstep run ``y`` is this thread's block of a tensor whose
+    batch is split over ``Place.shard`` and whose rows over the strips: the
+    whole tensor's numbers are drawn once, by the run's first thread, as
+    the unsharded forward draws them, and each thread takes its block."""
+    if not sharded():
+        return torch.rand(y.shape, generator=generator,
+                          device=generator.device).to(y.device)
+    place = _ctx()[1]
+    height = shape(y)[1]
+    i, k = place.shard
+    n = y.shape[0]
+    whole = (torch.rand((n * k, height, *y.shape[2:]), generator=generator,
+                        device=generator.device)
+             if place.rank == 0 else None)
+    posts, _ = _exchange((whole,), None)
+    (whole, ev), = posts[0]
+    a, b = partition(height, len(place.strips))[
+        place.strips.index(place.rank)]
+    return _on(whole[i * n:(i + 1) * n, a:b], ev, y.device)
+
+
 def _on(t: torch.Tensor, ready, device) -> torch.Tensor:
     """A small posted tensor on ``device``."""
     if t.device == device:
         return t
-    out = torch.empty_like(t, device=device)
+    if torch.is_grad_enabled() and t.requires_grad:
+        return t.to(device)
+    out = torch.empty_like(t.contiguous(), device=device)
     _copy(out, t, ready)
     return out
 

@@ -35,8 +35,11 @@ def ce_from_sums(sums: torch.Tensor) -> torch.Tensor:
 
 
 def dice_sums(probs: torch.Tensor, labels_onehot: torch.Tensor):
-    """(sum p g, sum p, sum g) over the foreground channel, stacked."""
-    p, g = probs[..., 1], labels_onehot[..., 1]
+    """(sum p g, sum p, sum g) over the foreground channel, stacked, in
+    the wider of the two dtypes (the CE term's product promotes alike; the
+    models' probabilities are f32 even in an f64 model, as JAX's are)."""
+    g = labels_onehot[..., 1]
+    p = probs[..., 1].to(torch.promote_types(probs.dtype, g.dtype))
     return torch.stack([(p * g).sum(), p.sum(), g.sum()])
 
 

@@ -7,17 +7,29 @@ models take JAX's canonical path, as JAX's ``not train`` gates do.
 
 ``make_dp_train_step`` is the data-parallel step over a ``torch.distributed``
 process group (``parallel/distributed.py``), each rank holding its share of
-the global batch.  It computes what the serial step computes on the whole
-batch, as JAX's GSPMD step does: the BatchNorm statistics and the Dice
-term come from global sums (one differentiable all-reduce each), and the
-gradients are averaged over the ranks.  JAX's ``sp`` and ``mp`` axes
-(spatial and channel sharding) are not ported.
+the global batch: the multi-host path.  It computes what the serial step
+computes on the whole batch, as JAX's GSPMD step does: the BatchNorm
+statistics and the Dice term come from global sums (one differentiable
+all-reduce each), and the gradients are averaged over the ranks.
+
+``shard_train_step`` is JAX's ``shard_train_step``: the step over a (dp,
+sp, mp) mesh of devices in one process (``parallel/mesh.py``).  Each mesh
+device runs its replica on its batch shard's rows of its strip, one thread
+per device in lockstep (``parallel/spatial.py``): the convs exchange halo
+rows along sp, the convs of sharded kernels compute their output-channel
+slices and gather them along mp (``parallel/channels.py``), and the
+BatchNorm statistics and the loss come from sums over every batch shard
+and strip (``spatial.batch_sum``).  That builds one autograd graph over
+the mesh, and one ``backward()`` walks it; each parameter's gradient is
+then the sum over its copies, and one adam steps every slice.  The loss
+and the model that ``unshard`` gives are the serial step's.
 """
 
 from __future__ import annotations
 
+import weakref
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -26,6 +38,8 @@ import torch.nn as nn
 
 from ..models.bridge import _flatten
 from ..models.unet_decoder import BatchNorm
+from ..parallel import channels, spatial
+from ..parallel import mesh as mesh_lib
 from .losses import (ce_sums, dice_sums, loss_from_sums, make_optimizer,
                      segmentation_loss)
 
@@ -147,6 +161,124 @@ def make_dp_train_step():
         state.step += 1
         return loss
 
+    return step
+
+
+@dataclass
+class MeshState:
+    """The train state over a mesh: one replica per mesh device, in rank
+    order (``mesh.shard_variables``), one adam over every distinct
+    parameter tensor (each holds its slice's moments), and the serial model
+    the state was sharded from, into which ``unshard`` writes.  ``copies``:
+    the tensors of one parameter slice on different devices, whose
+    gradients the step sums."""
+    mesh: mesh_lib.Mesh
+    replicas: list
+    optimizer: torch.optim.Optimizer
+    model: nn.Module
+    step: int = 0
+    copies: list = field(default_factory=list)
+
+
+def shard_state(state: TrainState, mesh: mesh_lib.Mesh) -> MeshState:
+    """``state`` on ``mesh``: its model sharded by ``mesh.param_spec``, its
+    learning rate, and its adam moments (if it has stepped) sliced as the
+    parameters are."""
+    replicas = mesh_lib.shard_variables(state.model, mesh)
+    seen, groups = {}, {}
+    for r in replicas:
+        for k, p in r.named_parameters():
+            if id(p) not in seen:
+                seen[id(p)] = (k, p)
+                m = getattr(p, channels.SLICE, (None,))[0]
+                groups.setdefault((k, m), []).append(p)
+    opt = make_optimizer([p for _, p in seen.values()],
+                         state.optimizer.param_groups[0]["lr"])
+    named = dict(state.model.named_parameters())
+    for k, p in seen.values():
+        old = state.optimizer.state.get(named[k])
+        if old:
+            m, mp = getattr(p, channels.SLICE, (0, 1))
+            opt.state[p] = {key: v.clone() if key == "step" else
+                            mesh_lib._piece(v, m, mp, mp > 1, p.device)
+                            for key, v in old.items()}
+    return MeshState(mesh, replicas, opt, state.model, state.step,
+                     [g for g in groups.values() if len(g) > 1])
+
+
+def unshard(ms: MeshState) -> nn.Module:
+    """The serial model, its leaves set to the mesh's."""
+    return mesh_lib.gather_variables(ms.replicas, ms.mesh, ms.model)
+
+
+def _sum_copies(copies):
+    """Set each group of copies' gradients to their sum (in group order,
+    on the first copy's device)."""
+    for group in copies:
+        grads = [p.grad for p in group if p.grad is not None]
+        if not grads:
+            continue
+        dev = group[0].device
+        total = grads[0].to(dev, copy=True)
+        for g in grads[1:]:
+            total += g.to(dev)
+        for p in group:
+            p.grad = total if p.device == dev else total.to(p.device)
+
+
+def shard_train_step(mesh: mesh_lib.Mesh):
+    """The step over ``mesh``: ``step(ms, x, y, generator=None) -> loss``
+    on a ``MeshState`` (``shard_state``).  x (N, H, W, 3) and y (N, H, W,
+    2) are the global batch on any device; N must divide by dp and H by
+    32 * sp (the deepest level's rows over the strips, as JAX's dry run
+    sizes it), or ``ValueError``.  Device (d, s, m) takes batch shard d's
+    rows of strip s.  DeepLab's dropout draws the serial step's mask for
+    the global batch from ``generator`` once.  The step's threads (one per
+    mesh device) live as long as the step: ``step.close()`` ends them."""
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    devices = mesh.flat()
+    places = mesh.places()
+    threads = spatial.StripThreads(mesh.size)
+
+    def work(model, block, generator):
+        xb, yb = block
+        probs = _forward(model, xb, generator)
+        s = spatial.batch_sum(torch.cat([ce_sums(probs, yb),
+                                         dice_sums(probs, yb)]))
+        return loss_from_sums(s[:2], s[2:])
+
+    def step(ms: MeshState, x, y, generator=None):
+        n, h = x.shape[:2]
+        if n % dp:
+            raise ValueError(f"a batch of {n} does not split over dp={dp}")
+        if h % (32 * sp):
+            raise ValueError(f"height {h} is not a multiple of 32 * sp = "
+                             f"{32 * sp}")
+        b = n // dp
+        rows = spatial.partition(h, sp)
+        blocks = []
+        for r, dev in enumerate(devices):
+            d, s, _ = mesh.coords(r)
+            at = (slice(d * b, (d + 1) * b), slice(*rows[s]))
+            blocks.append((x[at].to(dev), y[at].to(dev)))
+        ms.optimizer.zero_grad(set_to_none=True)
+        for r in ms.replicas:
+            r.train()
+        try:
+            loss = threads.run_grid(
+                lambda m, blk: work(m, blk, generator), ms.replicas, blocks,
+                devices, places)[0]
+            loss.backward()
+        finally:
+            for r in ms.replicas:
+                r.eval()
+        _sum_copies(ms.copies)
+        ms.optimizer.step()
+        ms.step += 1
+        return loss.detach()
+
+    step.close = threads.close
+    weakref.finalize(step, threads.close)
     return step
 
 

@@ -11,6 +11,13 @@ picks it up on the next run.
     python examples/train_torch.py slide.tiff --gt slide-gt.tiff \\
         --model dense --mode colon --steps 200 --batch 16
 
+Several devices in one process: with ``--device cuda`` and more than one
+visible card, or a comma-separated ``--device`` list (``cpu,cpu,cpu,cpu``
+fakes four devices), the step runs over a (dp, sp, mp) mesh of them
+(``parallel/mesh.py``, ``training/train.py::shard_train_step``), as
+``examples/train.py`` meshes every local device; ``--batch`` must divide
+by dp, and the saved weights are the mesh's, gathered.
+
 Data-parallel over processes: set ``DPAI_COORDINATOR=host:port``,
 ``DPAI_NUM_PROCESSES=N`` and ``DPAI_PROCESS_ID=i`` for each of N processes
 (``parallel/distributed.py``); every process samples the same global batch
@@ -69,7 +76,8 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
+                    help="cuda (default: every visible card), cpu, or a "
+                         "comma-separated list of devices for a mesh")
     ap.add_argument("--from-scratch", action="store_true",
                     help="random init instead of the pretrained checkpoint")
     ap.add_argument("--out", default=None,
@@ -79,8 +87,8 @@ def parse_args(argv=None):
 
 
 def train(args):
-    """Fine-tune as ``args`` says -> (the train state, the saved path or
-    None on a process other than 0)."""
+    """Fine-tune as ``args`` says -> (the train state, a ``MeshState`` on
+    a mesh; the saved path or None on a process other than 0)."""
     import torch
 
     from digipathai_tpu_torch.engine.planner import plan_patches
@@ -89,20 +97,29 @@ def train(args):
     from digipathai_tpu_torch.models.registry import build_model
     from digipathai_tpu_torch.ops.color import normalize_patches
     from digipathai_tpu_torch.parallel import distributed as dist
+    from digipathai_tpu_torch.parallel.inference import make_dp_devices
+    from digipathai_tpu_torch.parallel.mesh import make_mesh
     from digipathai_tpu_torch.training.train import (
-        TrainState, make_dp_train_step, make_optimizer, make_train_step)
+        TrainState, make_dp_train_step, make_optimizer, make_train_step,
+        shard_state, shard_train_step, unshard)
 
     stem, ext = os.path.splitext(args.slide)
     gt_path = args.gt or f"{stem}-gt{ext}"
     if not os.path.exists(gt_path):
         raise SystemExit(f"ground truth not found: {gt_path}")
 
-    dist.initialize(device=args.device)
+    names = args.device.split(",")
+    dist.initialize(device=names[0])
     rank, world = dist.process_index(), dist.process_count()
     if args.batch % world:
         raise SystemExit(f"--batch must be divisible by the {world} "
                          f"processes")
-    device = torch.device(args.device)
+    mesh = None
+    if not os.environ.get("DPAI_COORDINATOR"):
+        local = make_dp_devices(device=names if len(names) > 1 else names[0])
+        if len(local) > 1:
+            mesh = make_mesh(devices=local)
+    device = mesh.flat()[0] if mesh else torch.device(names[0])
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
 
@@ -123,7 +140,13 @@ def train(args):
         model = model.to(device)
         state = TrainState(model, make_optimizer(model.parameters(),
                                                  args.lr))
-        if world > 1:
+        if mesh:
+            print(f"mesh: {mesh.shape}")
+            if args.batch % mesh.shape["dp"]:
+                raise SystemExit(f"--batch must be divisible by "
+                                 f"dp={mesh.shape['dp']}")
+            state, step = shard_state(state, mesh), shard_train_step(mesh)
+        elif world > 1:
             print(f"process {rank} of {world}: data-parallel on {device}")
             step = make_dp_train_step()
         else:
@@ -153,7 +176,8 @@ def train(args):
     if rank == 0:
         out = args.out or str(weights_lib.converted_path(args.mode,
                                                          args.model))
-        weights_lib.save_converted(state.model, Path(out))
+        weights_lib.save_converted(unshard(state) if mesh else state.model,
+                                   Path(out))
         print(f"saved fine-tuned weights -> {out}")
     dist.barrier()
     return state, out

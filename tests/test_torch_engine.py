@@ -283,7 +283,8 @@ print("ok")
 
 
 def test_every_module_stands_alone(synthetic_slide, small_slide, tmp_path):
-    """Importing every module of the port, a TinyUNet train step, running
+    """Importing every module of the port, a TinyUNet train step (serial,
+    then on a four-device CPU mesh), running
     the oracle engine spatially sharded over two devices and with crf=True
     in patch and in tile mode, the 3-model ensemble (quick=False)
     in tile mode, and dense from a written .npz cache (folded, quantized
@@ -301,7 +302,8 @@ for name in ("ops.stage_fused", "engine.tile_infer", "ops.resize",
              "models.convert_h5", "models.fold_bn", "models.quant",
              "training.losses", "training.train", "parallel.distributed",
              "parallel.inference", "parallel.spatial", "ops.roi",
-             "utils.metrics", "utils.viz"):
+             "utils.metrics", "utils.viz", "parallel.mesh",
+             "parallel.channels", "dryrun"):
     assert "digipathai_tpu_torch." + name in names, name
 import torch
 from digipathai_tpu_torch.models import registry
@@ -311,6 +313,14 @@ state = init_state(b, 32, device="cpu")
 loss = make_train_step()(state, torch.zeros(2, 32, 32, 3),
                          torch.ones(2, 32, 32, 2) / 2)
 assert torch.isfinite(loss) and state.step == 1
+from digipathai_tpu_torch.parallel.mesh import make_mesh
+from digipathai_tpu_torch.training.train import shard_state, shard_train_step
+mesh = make_mesh(devices=["cpu"] * 4)
+step = shard_train_step(mesh)
+loss = step(shard_state(state, mesh), torch.zeros(2, 64, 64, 3),
+            torch.ones(2, 64, 64, 2) / 2)
+step.close()
+assert torch.isfinite(loss) and mesh.shape == {{"dp": 1, "sp": 2, "mp": 2}}
 from digipathai_tpu_torch.models import registry, weights
 m = registry.build_model("dense").init(64, seed=7)
 weights.save_converted(m, weights.converted_path("colon", "dense"))

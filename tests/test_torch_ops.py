@@ -198,3 +198,56 @@ def test_finalize_maps():
     want = jf(*(jnp.asarray(a) for a in (mean, var, count)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kernels", [(50, 35), (20, 5)])
+def test_bin_morpho_process_mask(kernels):
+    """The reference's close -> open cleanup, both of its kernel pairs."""
+    from digipathai_tpu.ops.morphology import bin_morpho_process_mask as jb
+    from digipathai_tpu_torch.ops.morphology import (
+        bin_morpho_process_mask as tb)
+
+    m = np.random.default_rng(7).random((128, 160)) > 0.7
+    ck, ok = kernels
+    got = tb(torch.from_numpy(m), close_k=ck, open_k=ok).numpy()
+    want = np.asarray(jb(jnp.asarray(m), close_k=ck, open_k=ok))
+    assert got.any()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["tissue_mask_saturation_binary",
+                                  "tissue_mask_saturation_otsu"])
+def test_saturation_tissue_masks(name):
+    from digipathai_tpu.ops import morphology as jm
+    from digipathai_tpu_torch.ops import morphology as tm
+
+    img = _u8_image(8)
+    img[:10, :10] = 128  # grey: saturation 0
+    got = getattr(tm, name)(torch.from_numpy(img)).numpy()
+    want = np.asarray(getattr(jm, name)(jnp.asarray(img)))
+    assert got.any() and not got.all()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("data", ["float", "int", "constant"])
+def test_normalize_minmax(data):
+    from digipathai_tpu.ops.color import normalize_minmax as jn
+    from digipathai_tpu_torch.ops.color import normalize_minmax as tn
+
+    x = {"float": np.random.default_rng(5).normal(3, 2, (6, 5)),
+         "int": np.arange(12).reshape(3, 4),
+         "constant": np.full((3, 3), 7)}[data]
+    got, want = tn(x), jn(x)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_get_mean_img():
+    from digipathai_tpu.ops.stitch import get_mean_img as jg
+    from digipathai_tpu_torch.ops.stitch import get_mean_img as tg
+
+    rng = np.random.default_rng(6)
+    maps = [rng.random((9, 7)) * 3 for _ in range(3)]
+    count = rng.integers(0, 4, (9, 7)).astype(np.float32)  # zeros -> 1
+    for g, w in zip(tg(maps, count), jg(maps, count)):
+        np.testing.assert_array_equal(g, w)

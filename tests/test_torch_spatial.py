@@ -492,6 +492,52 @@ def test_big_models_sharded_match_jax_one_device(key, big_models):
                                    atol=TOL, err_msg=f"{key} var, D={d}")
 
 
+@pytest.mark.parametrize("key, quantized", [
+    ("dense", True), ("dense", "static"), ("inception", True),
+    ("deeplabv3", True), ("deeplabv3", "static")])
+def test_int8_sharded_equals_one_device(key, quantized, big_models):
+    """int8 on the sharded step (``models/quant.py``: dynamic scales by
+    ``spatial.all_max`` over the strips, static ones from the calibrated
+    ``amax``, the VALID int8 conv through ``spatial.valid_rows``): tile
+    32 + 2 x 16, TTA DEFAULT and ROTATE_90, over 2 and 4 strips, against
+    the port's one-device step, f32, at the f32 sharded step's bound.
+    The trees are randomized, so DeepLab's static map is not the constant
+    0.5 of the seeded init."""
+    import copy
+
+    from digipathai_tpu_torch.engine.tile_infer import (build_tile_step,
+                                                        build_tile_step_sp)
+    from digipathai_tpu_torch.models import quant
+    from digipathai_tpu_torch.ops.color import normalize_patches
+    from digipathai_tpu_torch.parallel.inference import replicas
+
+    _, _, tb, module = big_models[key]
+    module = copy.deepcopy(module)
+    module.quantized = quant.mode_of(quantized)
+    tile, halo, tta = 32, 16, ["DEFAULT", "ROTATE_90"]
+    img = np.random.default_rng(len(key) + 20).integers(
+        0, 255, (tile + 2 * halo, tile + 2 * halo, 3)).astype(np.uint8)
+    if quantized == "static":
+        quant.calibrate(module, [normalize_patches(
+            torch.from_numpy(img)[None], torch.float32)])
+    wm, wv = build_tile_step([tb], tta, tile, halo,
+                             compute_dtype=torch.float32,
+                             device="cpu")([module], img)
+    assert float(wv.max()) > 0 and float(wm.std()) > 0
+    for d in (2, 4):
+        devices = ["cpu"] * d
+        step = build_tile_step_sp([tb], tta, tile, halo, devices,
+                                  compute_dtype=torch.float32)
+        try:
+            gm, gv = step(replicas([module], devices), img)
+        finally:
+            step.close()
+        np.testing.assert_allclose(gm.numpy(), wm.numpy(), rtol=0,
+                                   atol=TOL, err_msg=f"mean, D={d}")
+        np.testing.assert_allclose(gv.numpy(), wv.numpy(), rtol=0,
+                                   atol=TOL, err_msg=f"var, D={d}")
+
+
 # -------------------------------------------------------------- the engine
 
 def _engine(engine, slide, out_dir, monkeypatch, **kw):

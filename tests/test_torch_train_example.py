@@ -3,7 +3,8 @@
 ``tests/test_train_example.py``'s two cases on the port's twin of
 ``examples/train.py`` (``--device cpu``), and a third: the weights it
 saves into the port's cache load through ``weights.load_variables`` as
-the trained module.
+the trained module.  A fourth trains on a (1, 2, 2) mesh of four CPU
+devices in one process (``--device cpu,cpu,cpu,cpu``).
 """
 
 import os
@@ -121,3 +122,31 @@ def test_saved_weights_load_as_the_trained_module(gt_slide_pair):
                for k, v in trained.items())
     for k, v in loaded.state_dict().items():
         assert torch.equal(v, trained[k]), k
+
+
+def test_train_example_on_a_mesh(gt_slide_pair, tmp_path, capsys):
+    """``--device cpu,cpu,cpu,cpu`` meshes four devices at (1, 2, 2) in one
+    process, as ``examples/train.py`` meshes every local device: it prints
+    the mesh, the loss falls, and the saved weights are the mesh's
+    (``unshard``)."""
+    import re
+
+    from digipathai_tpu_torch.training.train import MeshState, unshard
+
+    slide, _ = gt_slide_pair
+    out = str(tmp_path / "mesh.npz")
+    ns = runpy.run_path(EXAMPLE)
+    argv = [a if a != "cpu" else "cpu,cpu,cpu,cpu" for a in TINY]
+    state, saved = ns["train"](ns["parse_args"]([slide, *argv, "--out",
+                                                 out]))
+    text = capsys.readouterr().out
+    assert "mesh: {'dp': 1, 'sp': 2, 'mp': 2}" in text, text
+    losses = [float(v) for v in re.findall(r"loss (\S+)", text)]
+    assert len(losses) == 2 and losses[-1] < losses[0], losses
+    assert isinstance(state, MeshState) and state.step == 4
+    assert saved == out
+    model = unshard(state)
+    loaded = np.load(out)
+    assert sorted(loaded.files) == sorted(model.state_dict())
+    for k, v in model.state_dict().items():
+        assert np.array_equal(loaded[k], v.numpy()), k
