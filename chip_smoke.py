@@ -142,7 +142,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. server  - the WSGI app in process: GET /, the .dzi, POST /segment with
              crf=1, then with inference_mode=tile&crf=1 on an engine with
              fused_stages=5, then with quick=0 (the ensemble), each polled
-             to Done, then the mask's .dzi and one mask tile.
+             to Done, then the mask's .dzi and one mask tile;
+7. deploy  - the host surfaces: examples/make_demo_slide_torch.py writes
+             the 4096x3072 demo slide; the CLI (python -m
+             digipathai_tpu_torch.server.cli, no --device: its default,
+             the card) in a child process, driven by
+             tools/http_smoke_torch.py's route checks, quick and then
+             --full (tile, ensemble, every TTA, CRF, supertile 1024), each
+             with the child's seconds to its first answer and to Done and
+             its memory on the card (the card's free memory read here
+             before the child starts and while it lives after Done);
+             wsgi_torch.application (DPAI_VIEWER_ONLY=0) on
+             wsgiref.simple_server in a thread, POST /segment with crf=1
+             and inference_mode=tile moving every kernel's launch count;
+             tools/tile_parity_probe_torch.py (patch vs tile, then exact vs
+             int8) for the three models, each held to PROBE_BOUNDS, with
+             where patch vs tile's deltas lie (by distance to the patch
+             grid and to the supertile seams);
+             tools/activation_diff_torch.py's capture of one seeded
+             module card vs CPU for the three models, layer by layer in
+             f32.
 
 ``python3 chip_smoke.py --cards`` (a host with two or more cards) runs
 phases 1, 2 and of 5a and 5b only the serial references and the runs
@@ -163,6 +182,7 @@ CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -291,6 +311,19 @@ DP_BOUND = 1e-5
 SP_BOUND = 0.02
 SP_F32_BOUND = 1e-5
 SP_F32_SIDE = 1024 + 2 * 64  # the f32 check's reduced tile
+# deploy phase: the demo slide at its documented size, and the card-vs-CPU
+# bound of each captured layer over max(1, the layer's max|value|), f32
+DEMO_SIZE = (4096, 3072)
+ACT_PATCH = 64
+ACT_BOUND = 1e-4
+# the tile-parity probe's bounds, random weights, bf16, keyed by --quant:
+# about twice the largest of the three models' deltas on the card for
+# patch vs tile (dense p99 0.065, max 0.186, Dice 0.99972), four to five
+# times for exact vs int8 (p99 0.0009, max 0.0025, Dice 1); and the
+# distance bands (px to the patch grid) of patch vs tile's profile
+PROBE_BOUNDS = {False: {"p99": 0.13, "max": 0.4, "dice": 0.999},
+                True: {"p99": 0.005, "max": 0.01, "dice": 0.9999}}
+PROFILE_BANDS = ((0, 8), (8, 24), (24, 40), (40, 65))
 # peaks of one H100 SXM (NVIDIA's data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -300,25 +333,30 @@ def log(msg):
     print(msg, flush=True)
 
 
-def make_synthetic_slide(path, width, height, seed=0):
-    """The synthetic slide of ``tests/fixtures.py::make_synthetic_slide``:
-    ``render_he_like`` (pure numpy, loaded by path: another installed
-    package may own the top-level name ``tests``) written with the port's
-    own pyramid writer."""
+def load_script(rel):
+    """A script of the repository (``tools/...``, ``examples/...``,
+    ``wsgi_torch.py``) as a fresh module, loaded by its path."""
     import importlib.util
 
-    from digipathai_tpu_torch.io.backend import write_pyramid
-
-    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "tests", "fixtures.py")
-    spec = importlib.util.spec_from_file_location("dpai_fixtures", fixtures)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    name = os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    img, tissue, lesion = mod.render_he_like(width, height, seed)
-    write_pyramid(path, img, compression="jpeg", quality=92, mpp=0.5,
-                  description="DigiPathAI-TPU synthetic fixture")
-    return {"width": width, "height": height, "tissue_mask": tissue,
-            "lesion_mask": lesion}
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def torch_fixtures():
+    """``tools/torch_fixtures.py``: the makers of ``tests/fixtures.py``
+    writing through the port's own pyramid writer."""
+    return load_script("tools/torch_fixtures.py")
+
+
+def make_synthetic_slide(path, width, height, seed=0):
+    """``tests/fixtures.py::make_synthetic_slide`` through the port's
+    writer, as the port's tools make it."""
+    return torch_fixtures().make_synthetic_slide(path, width, height, seed)
 
 
 def bound(flop, nbytes, kind):
@@ -333,6 +371,14 @@ def smi_line() -> str:
                         "--format=csv,noheader"],
                        capture_output=True, text=True, check=True, timeout=60)
     return r.stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def time_ms(fn, reps=10, warmup=2) -> float:
@@ -1683,17 +1729,12 @@ def phase_train(state):
     del x, y
 
     # 3. the data-parallel step on nccl at world size 1
-    import socket
-
     import torch.distributed as tdist
 
     from digipathai_tpu_torch.parallel import distributed
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    distributed.initialize(coordinator=f"127.0.0.1:{port}", num_processes=1,
-                           process_id=0, device="cuda")
+    distributed.initialize(coordinator=f"127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0, device="cuda")
     try:
         backend = tdist.get_backend()
         _, plain, x, y = small_dense_pair(torch.float64, 67)
@@ -2133,14 +2174,11 @@ def nccl_dp_cards(state):
     """The nccl data-parallel step (``make_dp_train_step``) with one
     process per card against the serial step on cuda:0, f64."""
     import multiprocessing
-    import socket
 
     import torch
 
     world = torch.cuda.device_count()
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
+    port = free_port()
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=dp_rank, args=(r, world, port, state["tmp"]))
              for r in range(world)]
@@ -3081,6 +3119,263 @@ def phase_server(state):
         th.join(timeout=10)
 
 
+def compute_apps() -> list:
+    """(pid, used memory) of each process nvidia-smi lists on the card (in
+    a container it may list host pids, or none)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return [tuple(f.strip() for f in line.split(",", 1))
+            for line in r.stdout.splitlines() if "," in line]
+
+
+def deploy_cli(state, smoke, slide, full):
+    """The port's CLI in a child process with no ``--device`` (its default,
+    the card) on a directory of its own holding ``slide``, driven through
+    ``http_smoke_torch.run_checks``; the card's free memory, read in this
+    process before the child starts and again after the run is Done while
+    the child lives, shows the child's context on the card."""
+    import shutil
+
+    import torch
+
+    tag = "full" if full else "quick"
+    d = os.path.join(state["tmp"], f"deploy-{tag}")
+    os.makedirs(d)
+    name = os.path.basename(slide)
+    shutil.copy(slide, d)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(d, "server.log")
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.time()
+    srv = smoke.start_server(d, port, device=None, full=full,
+                             log_path=log_path)
+    seen = {}
+
+    def on_done():
+        seen["used"] = free0 - torch.cuda.mem_get_info()[0]
+        seen["apps"] = compute_apps()
+
+    try:
+        ready = smoke.wait_ready(base, srv, timeout=300)
+        fails, secs = smoke.run_checks(
+            base, name, log=lambda m: log(f"[deploy]   {m}"),
+            on_done=on_done)
+    finally:
+        smoke.stop_server(srv)
+    if fails:
+        log(f"[deploy] server log (tail):\n{smoke.tail(log_path)}")
+        raise AssertionError(f"CLI {tag} drive: failed checks {fails}")
+    used = seen["used"] / 2**20
+    listed = str(srv.pid) in [pid for pid, _ in seen["apps"]]
+    if used < 256 and not listed:
+        raise AssertionError(
+            f"CLI {tag} drive: the child (pid {srv.pid}) does not show on "
+            f"the card: {used:.0f} MiB taken, compute apps {seen['apps']}")
+    flags = " ".join(smoke.FULL_FLAGS) if full else "no engine flags"
+    log(f"[deploy] CLI {tag} drive ({flags}; no --device): first / "
+        f"answered {ready:.2f} s after start; POST /segment to Done "
+        f"{secs:.2f} s; the card's free memory {used:.0f} MiB lower while "
+        f"the child lived after Done; compute apps (pid, memory): "
+        f"{seen['apps']} (child pid {srv.pid}, "
+        f"{'listed' if listed else 'not listed'}); {time.time() - t0:.1f} s "
+        f"in all | {state['smi']}")
+
+
+def deploy_wsgi(state, slide):
+    """``wsgi_torch.application`` with ``DPAI_VIEWER_ONLY=0`` on
+    ``wsgiref.simple_server`` in a thread: ``POST /segment`` with
+    ``crf=1&inference_mode=tile`` moves every kernel's launch count.  The
+    stage kernel runs only with ``fused_stages`` (0 by default in both
+    engines), which the app's config takes through ``engine_extra`` as
+    phase 6 sets it."""
+    import shutil
+    import threading
+    import urllib.request
+    from wsgiref.simple_server import WSGIRequestHandler, make_server
+
+    d = os.path.join(state["tmp"], "deploy-wsgi")
+    os.makedirs(d)
+    name = os.path.basename(slide)
+    shutil.copy(slide, d)
+    env = {"DPAI_SLIDE_DIR": d, "DPAI_VIEWER_ONLY": "0"}
+    with mock.patch.dict(os.environ, env):
+        app = load_script("wsgi_torch.py").application
+    cfg = app.dpai["config"]
+    if cfg.viewer_only or cfg.slide_dir != d:
+        raise AssertionError(f"wsgi_torch: {cfg}")
+    cfg.engine_extra["fused_stages"] = 5
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    httpd = make_server("127.0.0.1", 0, app, handler_class=Quiet)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+
+    def get(path, data=None):
+        with urllib.request.urlopen(base + path, data=data, timeout=60) as r:
+            return r.read()
+
+    stem = os.path.splitext(name)[0]
+    try:
+        if name.encode() not in get("/"):
+            raise AssertionError("wsgi_torch: slide not listed")
+        get(f"/{name}")  # the viewer page selects the slide
+        reset_launches()
+        get("/segment", data=b"tissuetype=Colon&crf=1&inference_mode=tile")
+        t0 = time.time()
+        while True:
+            st = json.loads(get("/check_segment_status"))
+            if st["status"] == "Done":
+                break
+            if st["status"] == "Error" or time.time() - t0 > 600:
+                raise AssertionError(f"wsgi_torch /segment: {st}")
+            time.sleep(0.25)
+        secs = time.time() - t0
+        moved = read_launches()
+        tile = get(f"/{stem}-dgai-mask.tiff_files/9/0_0.jpeg")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    if not all(moved.values()) or tile[:2] != b"\xff\xd8":
+        raise AssertionError(f"wsgi_torch /segment launched {moved}")
+    log(f"[deploy] wsgi_torch.application on wsgiref, DPAI_VIEWER_ONLY=0: "
+        f"POST /segment crf=1&inference_mode=tile Done in {secs:.2f} s, "
+        f"launches {moved}; mask tile served | {state['smi']}")
+
+
+def delta_profile(maps, vs, stride=128, seam=1024):
+    """Where patch vs tile's deltas lie, over the pixels both computed:
+    for bands of distance to the patch grid (patch mode's patch edges lie
+    on the multiples of ``stride`` in both axes), each band's share of
+    the pixels, its share of the pixels with |dP| > 0.01 and its
+    mean|dP|; the same for the pixels within a halo (``stride``) of an
+    interior supertile seam of tile mode."""
+    import numpy as np
+
+    p, t = maps[vs[0][0]], maps[vs[1][0]]
+    both = (p > 0) & (t > 0)
+    d = np.abs(p - t)
+    big = both & (d > 0.01)
+
+    def to_grid(n):
+        r = np.arange(n) % stride
+        return np.minimum(r, stride - r)
+
+    def to_seam(n):
+        i = np.arange(n)
+        seams = np.arange(seam, n, seam)
+        if not len(seams):
+            return np.full(n, n)
+        return np.abs(i[:, None] - seams[None, :]).min(1)
+
+    def band(sel):
+        sel = sel & both
+        return (f"px {sel.sum() / both.sum():.3f} big "
+                f"{(sel & big).sum() / max(big.sum(), 1):.3f} mean "
+                f"{d[sel].mean() if sel.any() else 0.0:.5f}")
+
+    dg = np.minimum.outer(to_grid(p.shape[0]), to_grid(p.shape[1]))
+    ds = np.minimum.outer(to_seam(p.shape[0]), to_seam(p.shape[1]))
+    parts = [f"[{lo},{hi}) {band((dg >= lo) & (dg < hi))}"
+             for lo, hi in PROFILE_BANDS]
+    return (f"|dP|>0.01 on {big.sum() / both.sum():.4f} of the compared "
+            f"px; by px to the patch grid: {'; '.join(parts)}; within "
+            f"{stride} px of a supertile seam: {band(ds < stride)}")
+
+
+def deploy_probes(state):
+    """``tile_parity_probe_torch`` (patch vs tile, then exact vs int8) for
+    the three models on the card, on the probe's own 2048^2 slide, each
+    held to ``PROBE_BOUNDS``; for patch vs tile, where the deltas lie."""
+    probe = load_script("tools/tile_parity_probe_torch.py")
+    d = os.path.join(state["tmp"], "deploy-parity")
+    os.makedirs(d)
+    slide = os.path.join(d, "parity.tiff")
+    make_synthetic_slide(slide, 2048, 2048, seed=11)
+    for quant in (False, True):
+        vs = probe.variants(quant)
+        limit = PROBE_BOUNDS[quant]
+        for model in ("dense", "inception", "deeplabv3"):
+            t = time.time()
+            maps = probe.run(model, d, slide, vs)
+            st = probe.stats(maps, vs)
+            log(f"[deploy] probe{' --quant' if quant else ''}: "
+                f"{probe.compare(model, maps, vs)} ({time.time() - t:.1f} "
+                f"s) | {state['smi']}")
+            if not quant:
+                log(f"[deploy] probe where: {model} "
+                    f"{delta_profile(maps, vs)}")
+            if not (st["px"] > 0 and st["p99"] <= limit["p99"]
+                    and st["max"] <= limit["max"]
+                    and st["dice"] >= limit["dice"]):
+                raise AssertionError(f"probe {model}: {st} against {limit}")
+
+
+def deploy_activations(state):
+    """``activation_diff_torch`` card vs CPU, layer by layer, for the three
+    models in f32 at 64^2: the tool's capture of one seeded module (its
+    BatchNorms randomized) on the CPU is the golden, its capture on the
+    card is compared with it.  The card's environment has no h5py, so the
+    tool's ``--h5`` route (``load_model``) is not driven here; the CPU
+    tests drive it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from digipathai_tpu_torch.models.registry import build_model
+
+    act = load_script("tools/activation_diff_torch.py")
+    for i, name in enumerate(("dense", "inception", "deeplabv3")):
+        t = time.time()
+        seeded = randomize_bn(build_model(name, dtype=torch.float32).init(
+            ACT_PATCH, seed=40 + i), 50 + i)
+        x = np.random.default_rng(0).normal(
+            0.0, 1.0, (1, ACT_PATCH, ACT_PATCH, 3)).astype(np.float32)
+        acts, _ = act.capture(copy.deepcopy(seeded), x, "cpu")
+        golden = {"input": x, **acts}
+        got, _ = act.capture(seeded, x, "cuda")
+        rows = act.diff_rows(got, golden)
+        rel = [(diff / max(1.0, float(np.abs(golden[k]).max())), k, diff, ok)
+               for k, diff, ok in rows]
+        bad = [r for r in rel if not r[3] or not r[0] <= ACT_BOUND]
+        worst = max(rel)
+        if bad:
+            raise AssertionError(f"activations {name}: {bad[:5]}")
+        log(f"[deploy] activation harness {name}: {len(rows)} layers card "
+            f"vs CPU, f32, {ACT_PATCH}^2, the seeded module; worst layer "
+            f"{worst[1]} max|Δ| {worst[2]:.3e} ({worst[0]:.3e} of max(1, "
+            f"its scale); bound {ACT_BOUND}) ({time.time() - t:.1f} s)")
+        del seeded
+
+
+def phase_deploy(state):
+    """The host surfaces on the card: the demo slide, the CLI (no
+    ``--device``) in a child process driven by ``http_smoke_torch`` quick
+    and ``--full``, ``wsgi_torch.application``, the tile-parity probe and
+    the activation harness."""
+    d = os.path.join(state["tmp"], "deploy")
+    t = time.time()
+    load_script("examples/make_demo_slide_torch.py").main(
+        [d, "--size", str(DEMO_SIZE[0]), str(DEMO_SIZE[1])])
+    slide = os.path.join(d, "demo-slide.tiff")
+    log(f"[deploy] make_demo_slide_torch {DEMO_SIZE[0]}x{DEMO_SIZE[1]} in "
+        f"{time.time() - t:.1f} s")
+    smoke = load_script("tools/http_smoke_torch.py")
+    deploy_cli(state, smoke, slide, full=False)
+    deploy_cli(state, smoke, slide, full=True)
+    deploy_wsgi(state, slide)
+    deploy_probes(state)
+    deploy_activations(state)
+
+
 def main():
     import shutil
 
@@ -3103,7 +3398,8 @@ def main():
         return 1
     phases = (phase_device, phase_build, phase_kernels, phase_model,
               phase_weights, phase_fold, phase_quant, phase_train,
-              phase_mesh, phase_engine, phase_dp, phase_sp, phase_server)
+              phase_mesh, phase_engine, phase_dp, phase_sp, phase_server,
+              phase_deploy)
     if cards:
         phases = (phase_device, phase_build, phase_cards)
     state = {}

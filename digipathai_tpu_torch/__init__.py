@@ -2,7 +2,8 @@
 
 The JAX package stays the reference; this package computes the same
 segmentation with PyTorch, and its kernels are hand-written CUDA: the 3x3
-convolutions (``csrc/conv_fused.cu``) and the CRF's bilateral message
+convolutions (``csrc/conv_fused.cu``), the fused U-Net decoder stage
+(``csrc/stage_fused.cu``) and the CRF's bilateral message
 (``csrc/bilateral.cu``).  The package imports nothing of ``digipathai_tpu``:
 host code (slide readers, the patch loader, the TIFF writer, the server)
 is a copy of the JAX package's, under the same module names.

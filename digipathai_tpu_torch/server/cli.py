@@ -1,4 +1,5 @@
-"""The port's server entry point: ``python -m digipathai_tpu_torch.server.cli``.
+"""The port's server entry point: the ``digipathai-torch`` console script,
+or ``python -m digipathai_tpu_torch.server.cli``.
 
 Flag parity target: ``reference DigiPathAI/main_server.py:245-297`` —
 ``-s/--slide_dir, -B, -c, -d, -e, -f, -l, -p, -Q, -S, --viewer-only`` with
@@ -18,7 +19,8 @@ from .wsgi_kit import serve
 
 def build_config(argv=None) -> tuple:
     parser = argparse.ArgumentParser(
-        prog="digipathai", usage="%(prog)s [options] [slide-directory]")
+        prog="digipathai-torch",
+        usage="%(prog)s [options] [slide-directory]")
     parser.add_argument("-s", "--slide_dir", default=None,
                         help="Directory containing the images (default: .)")
     parser.add_argument("-B", "--ignore-bounds", dest="limit_bounds",
