@@ -1,0 +1,6 @@
+"""The main thread's ``infer`` stage over the summed walls of the
+window's slides, in percent."""
+
+
+def read(ctx):
+    return ctx.stage_share(("infer",))
