@@ -203,6 +203,7 @@ def _memmap_dir() -> Path:
     return d
 
 
+@maybe_profile("segmentation")  # the whole call, where DPAI_PROFILE_DIR asks
 def getSegmentation(img_path,
                     patch_size: int = 256,
                     stride_size: int = 128,
@@ -252,9 +253,12 @@ def getSegmentation(img_path,
     ``data_parallel`` runs on all of the named devices (True, as JAX's
     every local device), the first n (an integer) or the first one
     (False).  Returns the thresholded (0/255) mean map in (X, Y)
-    orientation.
+    orientation.  ``status["timings"]`` gets the call's span seconds and
+    counters (``utils/profiling.py::StageTimer.summary``).
     """
     from ..parallel import inference as par
+
+    timer = StageTimer()
 
     mode = mode.lower()
     if mode not in weights_mod.MODES:
@@ -298,31 +302,39 @@ def getSegmentation(img_path,
         if q:
             # True (dynamic), "calib" or "static", as given
             kw["quantized"] = q
-        b = registry.build_model(name, dtype=compute_dtype, **kw)
+        with timer.stage("build"):
+            b = registry.build_model(name, dtype=compute_dtype, **kw)
         model_kws[b.name] = kw
-        if name in _ENSEMBLE:
-            v = weights_mod.load_variables(
-                b, mode, name, patch_size, status=status,
-                allow_random=allow_random_weights)
-        else:
-            v = b.init(patch_size)
-        if fold_bn:
-            from ..models.fold_bn import fold_module
+        with timer.stage("load"):
+            if name in _ENSEMBLE:
+                v = weights_mod.load_variables(
+                    b, mode, name, patch_size, status=status,
+                    allow_random=allow_random_weights)
+            else:
+                v = b.init(patch_size)
+        with timer.stage("to_device"):
+            if fold_bn:
+                from ..models.fold_bn import fold_module
 
-            fold_module(v)
+                fold_module(v)
+            v = v.to(device).eval()
         bundles.append(b)
-        variables_list.append(v.to(device).eval())
+        variables_list.append(v)
 
     # --- plan + maps -----------------------------------------------------
     _status_set(status, status="Running segmentation")
-    timer = StageTimer()
-    slide = Slide(str(img_path))
+    timer.start()  # "total" leaves the weights out
+    with timer.stage("open"):
+        slide = Slide(str(img_path))
     with timer.stage("plan"):
         plan = plan_patches(slide, patch=patch_size, stride=stride_size,
                             batch=global_batch, supertile=supertile,
                             mask_level=mask_level)
     X, Y = plan.slide_dims
     mdir = _memmap_dir()
+
+    def wrote(path):
+        timer.count("bytes_written", os.path.getsize(path))
 
     static_idx = [i for i, b in enumerate(bundles)
                   if model_kws[b.name].get("quantized") == "static"]
@@ -379,13 +391,17 @@ def getSegmentation(img_path,
         except (ValueError, OSError):
             pass
 
-    if mode_mm == "w+":  # fresh run: staged CRF tiles from older runs are stale
-        for sp in mdir.glob(f"{stem}-crftile-*.npz"):
-            sp.unlink()
-
-    mean_map = np.memmap(mdir / f"{stem}-mean.dat", np.float32, mode_mm, shape=(Y, X))
-    var_map = np.memmap(mdir / f"{stem}-var.dat", np.float32, mode_mm, shape=(Y, X))
-    count_map = np.memmap(mdir / f"{stem}-count.dat", np.float32, mode_mm, shape=(Y, X))
+    with timer.stage("maps"):
+        if mode_mm == "w+":
+            # fresh run: staged CRF tiles from older runs are stale
+            for sp in mdir.glob(f"{stem}-crftile-*.npz"):
+                sp.unlink()
+        mean_map, var_map, count_map = (
+            np.memmap(mdir / f"{stem}-{k}.dat", np.float32, mode_mm,
+                      shape=(Y, X)) for k in ("mean", "var", "count"))
+        if mode_mm == "w+":
+            for m in (mean_map, var_map, count_map):
+                wrote(m.filename)
 
     # guards the state file and the progress sets, which the flushers
     # mutate; re-entrant because tile mode's flush saves state under it
@@ -397,12 +413,14 @@ def getSegmentation(img_path,
         # mean /= count is not idempotent)
         with state_lock:
             tmp = state_path.with_suffix(".tmp")
-            tmp.write_text(json.dumps(
+            text = json.dumps(
                 {"config": cfg_key, "completed": sorted(completed),
                  "crf_tiles": sorted(crf_tiles_done),
                  "finalized": mark_finalized or finalized,
-                 "inflight": [inflight] if inflight is not None else []}))
+                 "inflight": [inflight] if inflight is not None else []})
+            tmp.write_text(text)
             os.replace(tmp, state_path)
+        timer.count("bytes_written", len(text))
 
     # --- CRF staging, shared by tile mode's per-supertile CRF and the
     # post-pass: CRF rewrites mean_map in place per tile (non-idempotent),
@@ -426,6 +444,7 @@ def getSegmentation(img_path,
         tmp = sp.with_name("tmp-" + sp.name)
         np.savez(tmp, box=np.asarray(box), block=refined)
         os.replace(tmp, sp)
+        wrote(sp)
         y0, y1, x0, x1 = box
         mean_map[y0:y1, x0:x1] = refined
         crf_tile_done(ti, sp)
@@ -476,16 +495,15 @@ def getSegmentation(img_path,
                                       supertile, device=dev, **crf_opts)
                 crf_write(ti, (oy, oy + th, ox, ox + tw), refined)
 
-        with maybe_profile("tile_segmentation"):
-            run_tile_inference(
-                slide, plan, bundles, tuple(variables_list), tta_full,
-                mean_map, var_map, count_map, halo=patch_size // 2,
-                status=status, timer=timer, progress_cb=progress_cb,
-                compute_dtype=compute_dtype, completed=completed,
-                on_group_done=lambda gi: save_state(),
-                faithful_tta=faithful_tta, spatial_shard=spatial_shard,
-                crf_cb=tile_crf_cb, bbox_compute=tile_bbox_compute,
-                state_lock=state_lock, devices=devices)
+        run_tile_inference(
+            slide, plan, bundles, tuple(variables_list), tta_full,
+            mean_map, var_map, count_map, halo=patch_size // 2,
+            status=status, timer=timer, progress_cb=progress_cb,
+            compute_dtype=compute_dtype, completed=completed,
+            on_group_done=lambda gi: save_state(),
+            faithful_tta=faithful_tta, spatial_shard=spatial_shard,
+            crf_cb=tile_crf_cb, bbox_compute=tile_bbox_compute,
+            state_lock=state_lock, devices=devices)
     else:
         # counts are computed on the host (add_counts_host), so the
         # accumulator carries mean + var; with one prediction per patch the
@@ -532,36 +550,48 @@ def getSegmentation(img_path,
             sx = int(c[:, 0].max() - ox) + patch_size - rx0
             sy = int(c[:, 1].max() - oy) + patch_size - ry0
             with timer.stage("flush"):
-                host = (par.reduce_accumulator(accs, (
-                    slice(0, fetch_planes), slice(rx0, rx0 + sx),
-                    slice(ry0, ry0 + sy)))
-                        .transpose(1, 2).contiguous().cpu().numpy())
-                save_state(inflight=gi)  # taint marker: += is not replayable
-                # host block is (planes, sy, sx) at map offset (oy+ry0, ox+rx0)
-                wy = min(sy, hy - ry0)
-                wx = min(sx, hx - rx0)
-                my, mx = oy + ry0, ox + rx0
-                mean_map[my:my + wy, mx:mx + wx] += host[0, :wy, :wx]
-                if fetch_planes > 1:
-                    var_map[my:my + wy, mx:mx + wx] += host[1, :wy, :wx]
-                add_counts_host(count_map, g.coords, g.valid, patch_size)
-            with state_lock:
-                completed.add(gi)
-            save_state()  # clears the inflight taint
+                with timer.stage("flush.fetch"):
+                    host = (par.reduce_accumulator(accs, (
+                        slice(0, fetch_planes), slice(rx0, rx0 + sx),
+                        slice(ry0, ry0 + sy)))
+                            .transpose(1, 2).contiguous().cpu().numpy())
+                with timer.stage("flush.state"):
+                    # taint marker: += is not replayable
+                    save_state(inflight=gi)
+                with timer.stage("flush.accumulate"):
+                    # host block is (planes, sy, sx) at map offset
+                    # (oy+ry0, ox+rx0)
+                    wy = min(sy, hy - ry0)
+                    wx = min(sx, hx - rx0)
+                    my, mx = oy + ry0, ox + rx0
+                    mean_map[my:my + wy, mx:mx + wx] += host[0, :wy, :wx]
+                    if fetch_planes > 1:
+                        var_map[my:my + wy, mx:mx + wx] += host[1, :wy, :wx]
+                    add_counts_host(count_map, g.coords, g.valid, patch_size)
+                with state_lock:
+                    completed.add(gi)
+                with timer.stage("flush.state"):
+                    save_state()  # clears the inflight taint
 
         accs = None
         cur_group = -1
-        with maybe_profile("segmentation"), ThreadPoolExecutor(1) as flusher:
+        with ThreadPoolExecutor(1, thread_name_prefix="flusher") as flusher:
             pending = []
-            for batch in PatchLoader(slide, plan, num_workers=num_workers,
-                                     skip_groups=completed):
+            batches = iter(PatchLoader(slide, plan, num_workers=num_workers,
+                                       skip_groups=completed))
+            while True:
+                with timer.stage("loader_wait"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 if batch.group_index != cur_group:
                     if accs is not None:
                         # flush in the background while the next supertile runs
                         pending.append(flusher.submit(flush, accs, cur_group))
                         # each pending flush pins D device accumulators
                         while len(pending) > 2:
-                            pending.pop(0).result()
+                            with timer.stage("flush_wait"):
+                                pending.pop(0).result()
                     accs = par.make_sharded_accumulator(
                         devices, supertile, patch_size, planes=2)
                     cur_group = batch.group_index
@@ -573,8 +603,9 @@ def getSegmentation(img_path,
                     progress_cb(done, total_batches)
             if accs is not None:
                 pending.append(flusher.submit(flush, accs, cur_group))
-            for fut in pending:
-                fut.result()  # surface flush errors
+            with timer.stage("flush_wait"):
+                for fut in pending:
+                    fut.result()  # surface flush errors
 
     # --- finalize (chunked): mean /= count, var /= count^2 ---------------
     CHUNK = 4096
@@ -585,8 +616,9 @@ def getSegmentation(img_path,
                 c = np.maximum(count_map[y0:y1], 1.0)
                 mean_map[y0:y1] /= c
                 var_map[y0:y1] /= c * c
-            mean_map.flush()
-            var_map.flush()
+            with timer.stage("finalize.sync"):
+                mean_map.flush()
+                var_map.flush()
         finalized = True
         save_state(mark_finalized=True)
 
@@ -609,6 +641,7 @@ def getSegmentation(img_path,
                              done=crf_tiles_done, on_tile=crf_write,
                              device=device, **crf_opts)
         mark_crf_applied(state_path, cfg_key)
+        wrote(state_path)
 
     # --- write artifacts -------------------------------------------------
     def write_u8_pyramid(path, mm):
@@ -626,35 +659,40 @@ def getSegmentation(img_path,
                                  scratch_dir=str(mdir)) as wr:
             wr.write_base(mm)
 
-    def write_u8(path, transform):
+    def write_u8(path, transform, scratch="u8"):
+        """``transform(y0, y1)``'s rows into the 8-bit memmap
+        ``<stem>-<scratch>.dat``, synced, then its pyramid at ``path``;
+        returns the memmap."""
         with timer.stage("write"):
-            tmp = np.memmap(mdir / f"{stem}-u8.dat", np.uint8, "w+", shape=(Y, X))
-            for y0 in range(0, Y, CHUNK):
-                y1 = min(y0 + CHUNK, Y)
-                tmp[y0:y1] = transform(y0, y1)
-            tmp.flush()
-            write_u8_pyramid(path, tmp)
-            del tmp
+            with timer.stage("write.quantize"):
+                mm = np.memmap(mdir / f"{stem}-{scratch}.dat", np.uint8, "w+",
+                               shape=(Y, X))
+                for y0 in range(0, Y, CHUNK):
+                    y1 = min(y0 + CHUNK, Y)
+                    mm[y0:y1] = transform(y0, y1)
+            with timer.stage("write.sync"):
+                mm.flush()
+            wrote(mm.filename)
+            with timer.stage("write.pyramid"):
+                write_u8_pyramid(path, mm)
+            wrote(path)
+        return mm
 
     write_u8(probs_path, lambda a, b: np.clip(
         np.round(mean_map[a:b] * 255.0), 0, 255).astype(np.uint8))
     if save_float_probs:
-        with PyramidalTiffWriter(str(probs_path) + ".f32.tiff", X, Y,
-                                 channels=1, dtype=np.float32,
-                                 compression="deflate",
-                                 scratch_dir=str(mdir)) as wr:
+        f32_path = str(probs_path) + ".f32.tiff"
+        with timer.stage("write"), timer.stage("write.pyramid"), \
+                PyramidalTiffWriter(f32_path, X, Y, channels=1,
+                                    dtype=np.float32, compression="deflate",
+                                    scratch_dir=str(mdir)) as wr:
             wr.write_base(mean_map)
+        wrote(f32_path)
 
     _status_set(status, progress=100)
     _status_set(status, status="Saving Prediction Mask...")
-    mask_mm = np.memmap(mdir / f"{stem}-maskbin.dat", np.uint8, "w+", shape=(Y, X))
-    with timer.stage("write"):
-        for y0 in range(0, Y, CHUNK):
-            y1 = min(y0 + CHUNK, Y)
-            mask_mm[y0:y1] = np.where(
-                mean_map[y0:y1] >= threshold, 255, 0).astype(np.uint8)
-        mask_mm.flush()
-        write_u8_pyramid(mask_path, mask_mm)
+    mask_mm = write_u8(mask_path, lambda a, b: np.where(
+        mean_map[a:b] >= threshold, 255, 0).astype(np.uint8), "maskbin")
 
     _status_set(status, status="Saving Prediction Uncertanity...")
     write_u8(uncertainty_path, lambda a, b: np.clip(

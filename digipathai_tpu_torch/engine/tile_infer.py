@@ -391,7 +391,8 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
             bundles, tta_full, S, halo, devices, compute_dtype=compute_dtype,
             faithful_tta=faithful_tta)
         try:
-            with ThreadPoolExecutor(2) as flusher:
+            with ThreadPoolExecutor(
+                    2, thread_name_prefix="flusher") as flusher:
                 pending = []
                 for gi, g in todo:
                     region = read(g)
@@ -406,7 +407,8 @@ def run_tile_inference(slide, plan, bundles, variables_tuple, tta_full,
             step_sp.close()
         return
 
-    with ThreadPoolExecutor(max(2, n_dev)) as flusher:
+    with ThreadPoolExecutor(max(2, n_dev),
+                            thread_name_prefix="flusher") as flusher:
         pending = []
         for i, (gi, g) in enumerate(todo):
             k = i % n_dev
