@@ -656,7 +656,7 @@ def getSegmentation(img_path,
             return
         with PyramidalTiffWriter(str(path), X, Y, channels=1, dtype=np.uint8,
                                  compression="jpeg", quality=90,
-                                 scratch_dir=str(mdir)) as wr:
+                                 scratch_dir=str(mdir), timer=timer) as wr:
             wr.write_base(mm)
 
     def write_u8(path, transform, scratch="u8"):
@@ -685,7 +685,7 @@ def getSegmentation(img_path,
         with timer.stage("write"), timer.stage("write.pyramid"), \
                 PyramidalTiffWriter(f32_path, X, Y, channels=1,
                                     dtype=np.float32, compression="deflate",
-                                    scratch_dir=str(mdir)) as wr:
+                                    scratch_dir=str(mdir), timer=timer) as wr:
             wr.write_base(mean_map)
         wrote(f32_path)
 

@@ -22,6 +22,7 @@ import struct
 import threading
 import zlib
 from collections import OrderedDict
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -731,6 +732,30 @@ class _IfdBuilder:
         return next_ptr_pos
 
 
+#: a level larger than this is built in a scratch memmap, not in RAM
+_DOWNSAMPLE_IN_RAM_BYTES = 512 << 20
+#: output rows a downsample reads and writes at a time
+_DOWNSAMPLE_ROWS = 4096
+#: the exact 2x2 sum's accumulator, by the unsigned dtype it sums
+_BOX2_ACC = {np.dtype(np.uint8): np.dtype(np.uint16),
+             np.dtype(np.uint16): np.dtype(np.uint32)}
+
+
+def _box2_int(block, out, pairs, acc, spare):
+    """``out`` = each 2x2 cell of ``block`` (2h, 2w, c) averaged, rounded
+    half to even, in integers: with ``s`` the cell's sum in ``acc`` (wide
+    enough for four maxima plus 2), ``(s + 1 + ((s >> 2) & 1)) >> 2``.
+    ``pairs`` (h, 2w, c) takes the row pairs' sums, over contiguous rows,
+    before the column pairs are added; ``spare`` is scratch like ``acc``."""
+    np.add(block[0::2], block[1::2], out=pairs, dtype=pairs.dtype)
+    np.add(pairs[:, 0::2], pairs[:, 1::2], out=acc)
+    np.right_shift(acc, 2, out=spare)
+    np.bitwise_and(spare, 1, out=spare)
+    np.add(spare, 1, out=spare)
+    np.add(acc, spare, out=acc)
+    np.right_shift(acc, 2, out=out, casting="unsafe")
+
+
 class PyramidalTiffWriter:
     """Streams a tiled pyramidal TIFF without materializing all levels in RAM.
 
@@ -747,7 +772,7 @@ class PyramidalTiffWriter:
 
     def __init__(self, path, width, height, channels=1, dtype=np.uint8,
                  tile=256, compression="jpeg", quality=90, description="",
-                 mpp=None, bigtiff=None, scratch_dir=None):
+                 mpp=None, bigtiff=None, scratch_dir=None, timer=None):
         self.path = str(path)
         self.width, self.height, self.channels = int(width), int(height), int(channels)
         self.dtype = np.dtype(dtype)
@@ -759,6 +784,9 @@ class PyramidalTiffWriter:
         self.description = description
         self.mpp = mpp
         self.scratch_dir = scratch_dir
+        # a StageTimer: a span per level's downsample and a count of the
+        # levels each path built; None records nothing
+        self.timer = timer
         if bigtiff is None:
             # Heuristic: raw base size over ~2 GB -> BigTIFF offsets.
             bigtiff = width * height * channels * self.dtype.itemsize > (2 << 30)
@@ -812,33 +840,46 @@ class PyramidalTiffWriter:
         return offsets, counts
 
     def _downsample_source(self, source, w, h):
-        """2x2 mean downsample into RAM or a scratch memmap for huge levels."""
+        """2x2 mean downsample into RAM or a scratch memmap for huge levels.
+
+        Unsigned integers of up to 16 bits take the exact integer path
+        (``_box2_int``); every other dtype averages in float32.  Both give
+        the same bytes for an integer map: a 2x2 sum is exact in float32,
+        as is its quarter, which ``np.round`` takes half to even."""
         nw, nh = max(1, w // 2), max(1, h // 2)
         nbytes = nw * nh * self.channels * self.dtype.itemsize
-        if nbytes > (512 << 20):
+        shape = (nh, nw, self.channels) if self.channels > 1 else (nh, nw)
+        if nbytes > _DOWNSAMPLE_IN_RAM_BYTES:
             import tempfile
 
             tmp = tempfile.NamedTemporaryFile(
                 prefix="dpai_pyr_", suffix=".dat", dir=self.scratch_dir, delete=False)
-            shape = (nh, nw, self.channels) if self.channels > 1 else (nh, nw)
             dst = np.memmap(tmp.name, dtype=self.dtype, mode="w+", shape=shape)
             self._scratch_files.append(tmp.name)
         else:
-            shape = (nh, nw, self.channels) if self.channels > 1 else (nh, nw)
             dst = np.zeros(shape, self.dtype)
-        step = 4096
+        step = _DOWNSAMPLE_ROWS
+        acc_dtype = _BOX2_ACC.get(self.dtype)
+        if acc_dtype is not None:
+            rows = min(step, nh)
+            pairs = np.empty((rows, 2 * nw, self.channels), acc_dtype)
+            acc = np.empty((rows, nw, self.channels), acc_dtype)
+            spare = np.empty_like(acc)
         for y in range(0, nh, step):
             bh = min(step, nh - y)
             block = np.asarray(source[2 * y:2 * (y + bh), 0:2 * nw])
             if block.ndim == 2:
                 block = block[:, :, None]
-            blk = block.reshape(bh, 2, nw, 2, self.channels).astype(np.float32)
-            ds = blk.mean(axis=(1, 3))
-            if np.issubdtype(self.dtype, np.integer):
-                ds = np.round(ds)
             view = dst[y:y + bh]
             view_3d = view if view.ndim == 3 else view[:, :, None]
-            view_3d[:] = ds.astype(self.dtype)
+            if acc_dtype is not None:
+                _box2_int(block, view_3d, pairs[:bh], acc[:bh], spare[:bh])
+            else:
+                blk = block.reshape(bh, 2, nw, 2, self.channels).astype(np.float32)
+                ds = blk.mean(axis=(1, 3))
+                if np.issubdtype(self.dtype, np.integer):
+                    ds = np.round(ds)
+                view_3d[:] = ds.astype(self.dtype)
         return dst, nw, nh
 
     def write_base(self, source):
@@ -848,8 +889,15 @@ class PyramidalTiffWriter:
         offsets, counts = self._emit_level(source, w, h)
         self._levels_meta.append((w, h, offsets, counts))
         cur = source
+        timer = self.timer
+        integer = self.dtype in _BOX2_ACC
         while max(w, h) > self.tile:
-            cur, w, h = self._downsample_source(cur, w, h)
+            with (nullcontext() if timer is None
+                  else timer.stage("write.pyramid.downsample")):
+                cur, w, h = self._downsample_source(cur, w, h)
+            if timer is not None:
+                timer.count("downsample_int_levels", int(integer))
+                timer.count("downsample_float_levels", int(not integer))
             offsets, counts = self._emit_level(cur, w, h)
             self._levels_meta.append((w, h, offsets, counts))
 

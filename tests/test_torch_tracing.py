@@ -120,6 +120,34 @@ def test_main_spans_cover_the_call(call):
     assert sum(s.end - s.start for s in top) >= 0.9 * wall
 
 
+def test_python_writer_times_each_downsample(synthetic_slide, tmp_path,
+                                            monkeypatch):
+    """On the pure-Python TIFF backend each level below a pyramid's base
+    is a main-thread ``write.pyramid.downsample`` span inside
+    ``write.pyramid``, counted on the integer path: three uint8 maps, none
+    on the float path."""
+    from digipathai_tpu_torch.io import backend
+    from digipathai_tpu_torch.io.tiff_py import TiffReader
+
+    monkeypatch.setattr(backend, "_FORCED", "0")
+    status, _, timer, _, paths = _segment(synthetic_slide[0], tmp_path,
+                                          monkeypatch)
+    levels = set()
+    for p in paths.values():
+        with TiffReader(p) as r:
+            levels.add(len(r.pages) - 1)
+    (below,) = levels
+    assert below >= 2
+    spans = [s for s in timer.spans if s.name == "write.pyramid.downsample"]
+    assert len(spans) == 3 * below
+    assert {(s.role, timer.spans[s.parent].name) for s in spans} == {
+        ("main", "write.pyramid")}
+    counters = status["timings"]["counters"]
+    assert counters["downsample_int_levels"] == 3 * below
+    assert counters["downsample_float_levels"] == 0
+    assert status["timings"]["write.pyramid.downsample"] > 0
+
+
 def test_profile_dir_traces_the_whole_call_main_thread_only(
         synthetic_slide, tmp_path, monkeypatch):
     """Under ``DPAI_PROFILE_DIR`` (a CPU ``torch.profiler`` over the
